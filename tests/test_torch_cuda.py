@@ -1,0 +1,86 @@
+"""The CUDA kernel and the port's facade on a GPU, against the plain
+PyTorch version on the CPU.  Needs an NVIDIA GPU and nvcc; every test
+skips without one.  Imports no JAX, so it runs where only the port is
+installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api import IndexConfig, LearnedIndex, manual_merge_policy
+from repro_torch.core.flat import flatten
+from repro_torch.data.datasets import generate
+from repro_torch.kernels import dili_search as T_kernel
+from repro_torch.kernels import ops as K
+
+pytestmark = pytest.mark.cuda
+NAMES = ("a", "b", "base", "fo", "dense", "tag", "key", "val", "root")
+
+
+@pytest.fixture(scope="module")
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def logn20k():
+    d, keys32 = K.build_f32_index(generate("logn", 20_000, 3))
+    return keys32, flatten(d)
+
+
+def _triple(arrs, q):
+    return T_kernel.dili_search(*(arrs[k] for k in NAMES), q,
+                                max_depth=arrs["max_depth"])
+
+
+def test_kernel_matches_plain_version(gpu, logn20k):
+    keys32, f = logn20k
+    assert f.dense.any()
+    mids = ((keys32[:-1].astype(np.float64) + keys32[1:]) / 2).astype(
+        np.float32)
+    q = np.concatenate([keys32, mids, keys32[:777],
+                        [np.inf, 3e9, -np.inf, 0.0, 1e30]]).astype(np.float32)
+    cpu = _triple(K.kernel_arrays(f, device="cpu"), torch.from_numpy(q))
+    before = T_kernel.kernel.launches
+    out = _triple(K.kernel_arrays(f, device=gpu), torch.from_numpy(q).to(gpu))
+    torch.cuda.synchronize()
+    assert T_kernel.kernel.launches == before + 1
+    assert cpu[2].any()                                  # dense lanes flagged
+    for g, w in zip(out, cpu):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_kernel_rejects_mixed_devices(gpu, logn20k):
+    keys32, f = logn20k
+    arrs = K.kernel_arrays(f, device=gpu)
+    with pytest.raises(ValueError):
+        _triple(arrs, torch.from_numpy(keys32[:64]))     # queries on the CPU
+
+
+def test_facade_on_gpu_matches_cpu(gpu):
+    rng = np.random.default_rng(7)
+    keys = np.unique(generate("fb", 20_000, 7).astype(np.float32)).astype(
+        np.float64)
+    cfg = IndexConfig(engine="pallas", merge=manual_merge_policy())
+    ixs = [LearnedIndex.build(keys, config=cfg, device=d)
+           for d in ("cpu", "cuda")]
+    q = np.concatenate([keys[rng.integers(0, len(keys), 5000)],
+                        (keys[:-1] + keys[1:])[:3000] / 2])
+    lo, hi = keys[:500], keys[50:550]
+    for ix in ixs:
+        ix.upsert(keys[:100] + 0.5, np.arange(100))
+        ix.delete(keys[200:300])
+    for step in ("pending", "flushed"):
+        (v0, f0), (v1, f1) = (ix.lookup(q) for ix in ixs)
+        assert np.array_equal(f0, f1) and np.array_equal(v0, v1), step
+        r0, r1 = (ix.range(lo, hi, max_hits=64) for ix in ixs)
+        for a, b in zip(r0, r1):
+            assert np.array_equal(a, b), step
+        for ix in ixs:
+            ix.flush()
+    assert ixs[1].stats()["kernel_eligible"]
+    assert ixs[1].kernel_stats["lookups"] == 2
