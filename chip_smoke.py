@@ -5,21 +5,28 @@
 
 Phases (any failure exits nonzero; nothing falls back to the CPU):
   1. card and build: prints the card's name and power limit, builds the
-     CUDA lookup kernel from `src/repro_torch/kernels/csrc/` with nvcc;
+     CUDA lookup kernel from `src/repro_torch/kernels/csrc/` with nvcc and
+     prints ptxas's register and shared-memory report;
   2. kernel against its plain version: at 20k keys and at the main index,
-     the CUDA triple (val, found, needs_fallback) must equal the plain
-     PyTorch version's bit for bit on hits, midpoint misses, +inf pad lanes
-     and queries above the key range, a ragged batch of 777, a table
-     with dense leaves, and the 2^20-lane batch that phase 4 times;
+     the CUDA (val, found) must equal the plain PyTorch version's bit for
+     bit on hits, midpoint misses, +inf and NaN lanes and queries above
+     the key range, a ragged batch of 777, a table with dense leaves, and
+     the 2^20-lane batch that phase 4 times;
   3. main path: `LearnedIndex.build` on `--keys` logn keys (f32, unique)
      with engine="pallas" on CUDA, lookups in 2^20-query batches, 4096
      range queries, a few thousand upserts and deletes, flush, lookups
-     again and `items()` — each checked against a numpy truth;
-  4. numbers: kernel launches during the main path, the flagged-lane
-     share, lanes the pair-table recheck changed, kernel / plain version /
-     whole lookup ms per 2^20-query batch, table bytes, build and flatten
-     seconds, and the kernel's bound from the distinct table words this
-     run's walk reads (a torch replay of the walk, held to the kernel).
+     again and `items()` — each checked against a numpy truth; the
+     kernel must have launched, and the pair-table recheck must have
+     turned no kernel miss into a hit;
+  4. numbers: kernel launches during the main path; on one 2^20-query
+     batch the share of lanes that end at a dense leaf, the L2 sectors the
+     walk requests under the column layout and under the packed records,
+     kernel ms (warm and cold L2), plain version ms, library ms
+     (`torch.searchsorted` over the pair table), whole lookup ms with its
+     device breakdown, and the kernel's bound from the distinct node
+     records and key and val words the batch reads (a torch replay of the
+     kernel, held to the kernel); table bytes, build, flatten and flush
+     seconds.
 The last two lines are the kernels JSON object and the `{"ok": true, ...}`
 result.  Needs `torch` with CUDA, `nvcc`, and `nvidia-smi`.
 """
@@ -39,7 +46,6 @@ ROOT = Path(__file__).resolve().parent
 BATCH = 1 << 20
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM data sheet, non-tensor f32
-NAMES = ("a", "b", "base", "fo", "dense", "tag", "key", "val", "root")
 
 
 def card_line() -> str:
@@ -50,11 +56,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def triple(arrs, q, plain: bool):
+def pair(arrs, q, plain: bool = False):
+    """(val, found) of the kernel, or of its plain version."""
     from repro_torch.kernels.dili_search import dili_search
     from repro_torch.kernels.ref import dili_search_ref
-    fn = dili_search_ref if plain else dili_search
-    return fn(*(arrs[k] for k in NAMES), q, max_depth=arrs["max_depth"])
+    recs = (arrs["node_rec"], arrs["slot_rec"], arrs["key"], q)
+    if plain:
+        return dili_search_ref(*recs, arrs["root"], arrs["max_depth"])
+    return dili_search(*recs, root=arrs["root"], max_depth=arrs["max_depth"])
 
 
 def lane_sets(keys32: np.ndarray, rng, device) -> dict:
@@ -64,7 +73,7 @@ def lane_sets(keys32: np.ndarray, rng, device) -> dict:
     hits = keys32[rng.integers(0, len(keys32), min(BATCH, len(keys32)))]
     above = np.concatenate([np.full(2048, np.inf),
                             [3e9, 1e30, keys32[-1] * 2.0, keys32[-1] + 1.0,
-                             np.finfo(np.float32).max]])
+                             np.finfo(np.float32).max, np.nan]])
     sets = dict(hits=hits,
                 misses=mids[rng.integers(0, len(mids),
                                          min(BATCH, len(mids)))],
@@ -79,71 +88,156 @@ def kernel_vs_plain(arrs, sets: dict, label: str) -> float:
     import torch
     worst = 0.0
     for name, q in sets.items():
-        got = triple(arrs, q, plain=False)
-        want = triple(arrs, q, plain=True)
-        for g, w, what in zip(got, want, ("val", "found", "fallback")):
+        want = pair(arrs, q, plain=True)
+        got = pair(arrs, q)
+        for g, w, what in zip(got, want, ("val", "found")):
             diff = (g.long() - w.long()).abs().max().item() if g.numel() else 0
             worst = max(worst, float(diff))
             if not torch.equal(g, w):
                 bad = int((g != w).sum())
                 raise AssertionError(f"{label}/{name}: kernel {what} differs "
                                      f"from the plain version on {bad} lanes")
-        flagged = int(got[2].sum())
         print(f"  {label}/{name}: {q.numel()} lanes bit-equal, "
-              f"{flagged} flagged needs_fallback", flush=True)
+              f"{int(want[1].sum())} found", flush=True)
     return worst
 
 
-def walk_reads(arrs, q):
-    """Replay the kernel's walk (csrc/dili_search.cu) with torch ops on
-    q's device and record which table words it reads: `dense` of every node
-    visited; `a`, `b`, `fo`, `base` of a non-dense node; `tag` of every slot
-    reached; `val` of a CHILD slot or of a PAIR whose key equals the query;
-    `key` of a PAIR.  Returns (triple, distinct words read per table,
-    non-dense levels visited)."""
+def walk_reads(arrs, q) -> dict:
+    """Replay the kernel (csrc/dili_search.cu) with torch ops on q's device:
+    the walk, then the dense probe of every lane that ends at a dense leaf.
+    Record each load the kernel makes (which lanes, which row) and what
+    the function needs of the kernel's own tables: the 16-byte record of
+    each node visited (its dense flag is fo's sign); of each slot reached,
+    the key word, which also carries the tag, and `val` of a CHILD or of a
+    PAIR equal to the query; the key words the probe compares.  A slot's
+    key is one word whether the slot record or the key column gives it,
+    so `key_rows` counts it once.  Returns the replay's (val, found), the
+    distinct node records and key and val words, the levels and probes
+    that predict a slot, the lanes that end at a dense leaf, and the L2
+    sectors requested under both layouts (`sectors`)."""
     import torch
-    from repro_torch.core.flat import TAG_CHILD, TAG_EMPTY, TAG_PAIR
+    from repro_torch.core.flat import TAG_CHILD, TAG_PAIR
     from repro_torch.core.search import predict_slot
+    from repro_torch.kernels.ref import unpack_tables
+    c = unpack_tables(arrs["node_rec"], arrs["slot_rec"], arrs["key"])
     nq, dev = q.numel(), q.device
     out = torch.full((nq,), -1, dtype=torch.int32, device=dev)
     hit = torch.zeros(nq, dtype=torch.bool, device=dev)
-    done = torch.zeros(nq, dtype=torch.bool, device=dev)
-    flag = torch.zeros(nq, dtype=torch.bool, device=dev)
-    reads = {k: [] for k in ("a", "b", "base", "fo", "dense", "tag", "key",
-                             "val")}
+    rows = {k: [] for k in ("node", "key", "val")}
+    loads = []           # (table, lanes, rows[, key read, val read])
+
+    def node_load(lanes, node):
+        loads.append(("node", lanes, node))
+        rows["node"].append(node)
+
+    def slot_load(lanes, s, qq):
+        t = c["tag"][s]
+        child, is_pair = t == TAG_CHILD, t == TAG_PAIR
+        eq = is_pair & (c["key"][s] == qq)
+        loads.append(("slot", lanes, s, is_pair, child | eq))
+        rows["key"].append(s)
+        rows["val"] += [s[child], s[eq]]
+        out[lanes[eq]] = c["val"][s[eq]]
+        hit[lanes[eq]] = True
+        return child
+
     lanes = torch.arange(nq, device=dev)
-    node = arrs["root"].long().expand(nq)
+    node = torch.full((nq,), int(arrs["root"]), dtype=torch.long, device=dev)
+    dense_lanes, dense_nodes = [], []
     levels = 0
     for _ in range(arrs["max_depth"]):
         if lanes.numel() == 0:
             break
-        reads["dense"].append(node)
-        dn = arrs["dense"][node] > 0
-        flag[lanes[dn]] = True
-        done[lanes[dn]] = True
+        node_load(lanes, node)
+        dn = c["dense"][node] > 0
+        dense_lanes.append(lanes[dn])
+        dense_nodes.append(node[dn])
         lanes, node = lanes[~dn], node[~dn]
-        for k in ("a", "b", "fo", "base"):
-            reads[k].append(node)
         levels += node.numel()
         qq = q[lanes]
-        pos = predict_slot(arrs["a"][node], arrs["b"][node], qq,
-                           arrs["fo"][node])
-        s = (arrs["base"][node] + pos).long()
-        reads["tag"].append(s)
-        t = arrs["tag"][s]
-        child, pair = t == TAG_CHILD, t == TAG_PAIR
-        reads["key"].append(s[pair])
-        eq = pair & (arrs["key"][s] == qq)
-        reads["val"] += [s[child], s[eq]]
-        out[lanes[eq]] = arrs["val"][s[eq]]
-        hit[lanes[eq]] = True
-        term = pair | (t == TAG_EMPTY)
-        done[lanes[term]] = True
-        node = torch.where(child, arrs["val"][s].long(), node)
-        lanes, node = lanes[~term], node[~term]
-    words = {k: int(torch.unique(torch.cat(v)).numel()) if v else 0
-             for k, v in reads.items()}
-    return (out, hit, flag | ~done), words, levels
+        pos = predict_slot(c["a"][node], c["b"][node], qq, c["fo"][node])
+        child = slot_load(lanes, (c["base"][node] + pos).long(), qq)
+        node = c["val"][(c["base"][node] + pos).long()].long()
+        lanes, node = lanes[child], node[child]
+    if lanes.numel():                 # out of depth: probed if dense
+        node_load(lanes, node)
+        dn = c["dense"][node] > 0
+        dense_lanes.append(lanes[dn])
+        dense_nodes.append(node[dn])
+
+    # the dense probe, as `_dense_search` and the kernel run it
+    L, N = torch.cat(dense_lanes), torch.cat(dense_nodes)
+    qq = q[L]
+    fo, base = c["fo"][N], c["base"][N]
+    m1 = torch.clamp(fo - 1, min=0)
+    pred = torch.minimum(torch.clamp(predict_slot(c["a"][N], c["b"][N], qq,
+                                                  fo), min=0), m1)
+
+    def key_load(mask, i):
+        r = (base + torch.minimum(torch.clamp(i, min=0), m1)).long()
+        loads.append(("key", L[mask], r[mask]))
+        rows["key"].append(r[mask])
+        return c["key"][r]
+
+    going_up = key_load(torch.ones_like(L, dtype=torch.bool), pred) < qq
+    bound = torch.ones_like(pred)
+    active = torch.ones_like(going_up)
+    for _ in range(16):
+        probe = active & torch.where(going_up, pred + bound < m1,
+                                     pred - bound > 0)
+        k = key_load(probe, torch.where(going_up, pred + bound, pred - bound))
+        active = probe & torch.where(going_up, k < qq, k > qq)
+        bound = torch.where(active, bound * 2, bound)
+    lo = torch.where(going_up, pred, torch.clamp(pred - bound, min=0))
+    hi = torch.where(going_up, torch.minimum(pred + bound, m1), pred)
+    for _ in range(16):
+        go = lo < hi
+        mid = (lo + hi) // 2
+        below = key_load(go, mid) < qq
+        lo = torch.where(go & below, mid + 1, lo)
+        hi = torch.where(go & ~below, mid, hi)
+    slot_load(L, (base + torch.minimum(lo, m1)).long(), qq)
+
+    return dict(pair=(out, hit),
+                rows={k: int(torch.unique(torch.cat(v)).numel()) if v else 0
+                      for k, v in rows.items()},
+                predicts=levels + L.numel(), dense_lanes=L.numel(),
+                sectors=l2_sectors(loads))
+
+
+def l2_sectors(loads) -> dict:
+    """L2 sectors the replayed loads request per layout: for each load,
+    the distinct 32-byte sectors among the lanes of each warp (32
+    consecutive lanes), summed.  `columns` reads one 4-byte column per
+    field (a node: a, b, base, fo, dense; a slot: tag, then key of a PAIR
+    and val of a CHILD or hit); `records` reads a node as one 16-byte
+    record and a slot as one 8-byte record (the kernel's layout).  Both
+    read the dense probe's keys from the f32 key column."""
+    import torch
+
+    def count(lanes, rows, row_bytes):
+        if lanes.numel() == 0:
+            return 0
+        sector = rows.long() * row_bytes // 32
+        return int(torch.unique((lanes.long() // 32) * (1 << 40)
+                                + sector).numel())
+
+    cols = recs = 0
+    for ld in loads:
+        table, lanes, rows = ld[:3]
+        if table == "node":
+            cols += 5 * count(lanes, rows, 4)
+            recs += count(lanes, rows, 16)
+        elif table == "slot":
+            key_read, val_read = ld[3], ld[4]
+            cols += (count(lanes, rows, 4)
+                     + count(lanes[key_read], rows[key_read], 4)
+                     + count(lanes[val_read], rows[val_read], 4))
+            recs += count(lanes, rows, 8)
+        else:
+            cols += count(lanes, rows, 4)
+            recs += count(lanes, rows, 4)
+    return dict(columns=cols, records=recs)
 
 
 def truth_lookup(tk: np.ndarray, tv: np.ndarray, q: np.ndarray):
@@ -264,10 +358,31 @@ def _apply(tk, tv, up_k, up_v, dead):
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median ms of `fn()` over `reps` runs, each between CUDA events."""
+    """ms per call of `fn()`: `reps` calls queued back to back between two
+    CUDA events.  The host queues ahead of the card, so this is device time
+    unless a call's host work outlasts its device work."""
     import torch
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def cold_l2_ms(fn, device, reps: int) -> float:
+    """Median ms of one `fn()` between CUDA events, with a 64 MB buffer
+    written before each run so that the tables start out of the 50 MB L2.
+    The card then spins for about 0.1 ms, while the host queues the run,
+    so the events time the device alone."""
+    import torch
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    times = []
+    for r in range(reps):
+        flush.fill_(r & 0xFF)
+        torch.cuda._sleep(200_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -338,6 +453,8 @@ def main() -> int:
     kernel.build()
     print(f"build: dili_search.cu built and loaded in {kernel.build_s:.3f} s",
           flush=True)
+    for line in kernel.ptxas_report.splitlines():
+        print(f"  {line.strip()}", flush=True)
 
     # -- 2. kernel against its plain version, 20k keys ------------------------
     d, k20 = K.build_f32_index(generate("logn", 20_000, args.seed))
@@ -356,10 +473,12 @@ def main() -> int:
     ks = ix.kernel_stats
     if launches == 0:
         raise AssertionError("the main path launched the kernel no time")
-    share = ks["flagged"] / max(ks["lanes"], 1)
+    if ks["recheck_changed"]:
+        raise AssertionError(f"the pair-table recheck changed "
+                             f"{ks['recheck_changed']} lanes: the kernel "
+                             f"missed keys that are in the table")
     print(f"main: kernel launches {launches} over {ks['lookups']} lookup "
-          f"calls; lanes flagged needs_fallback {ks['flagged']} of "
-          f"{ks['lanes']} ({share:.4f}); pair-table recheck changed "
+          f"calls ({ks['lanes']} lanes); pair-table recheck changed "
           f"{ks['recheck_changed']} lanes", flush=True)
 
     # -- 2b. kernel against its plain version at the main index ---------------
@@ -376,37 +495,64 @@ def main() -> int:
     q_np = next(lookup_batches(tk, rng, 1)).astype(np.float32)
     q = torch.from_numpy(q_np).to(dev)
     max_err = max(max_err, kernel_vs_plain(arrs, {"timed_2^20": q}, "main"))
+    # the replay must be the kernel, so its loads and words are the kernel's
+    rp = walk_reads(arrs, q)
+    for r, k, what in zip(rp["pair"], pair(arrs, q), ("val", "found")):
+        if not torch.equal(r, k):
+            raise AssertionError(f"walk replay {what} differs from the kernel")
+    print(f"timed batch: lanes ending at a dense leaf {rp['dense_lanes']} of "
+          f"{q.numel()} ({rp['dense_lanes'] / q.numel():.4f}); L2 sectors "
+          f"requested per 2^20 batch (32 B, distinct per warp and load): "
+          f"column layout {rp['sectors']['columns']}, packed records "
+          f"{rp['sectors']['records']}", flush=True)
     for _ in range(3):
-        triple(arrs, q, plain=False)
-    ms = cuda_ms(lambda: triple(arrs, q, plain=False), 50)
-    plain_ms = cuda_ms(lambda: triple(arrs, q, plain=True), 5)
+        pair(arrs, q)
+    rounds = [cuda_ms(lambda: pair(arrs, q), 25) for _ in range(8)]
+    ms = float(np.median(rounds))
+    print(f"kernel ms per launch over 8 rounds of 25: "
+          f"{[round(x, 5) for x in rounds]}", flush=True)
+    cold_ms = cold_l2_ms(lambda: pair(arrs, q), dev, 20)
+    plain_ms = cuda_ms(lambda: pair(arrs, q, plain=True), 5)
+    pk = torch.from_numpy(flat.pair_key.astype(np.float32)).to(dev)
+    pv = torch.from_numpy(flat.pair_val.astype(np.int32)).to(dev)
+
+    def library():
+        i = torch.searchsorted(pk, q).clamp_(max=pk.numel() - 1)
+        return pv[i], pk[i] == q
+
+    lv, lf = library()
+    kv, kf = pair(arrs, q)
+    if not (torch.equal(lf, kf) and torch.equal(lv[lf], kv[kf])):
+        raise AssertionError("searchsorted over the pair table disagrees "
+                             "with the kernel")
+    library_ms = cuda_ms(library, 50)
     ix.lookup(q_np)
     lookup_ms = float(np.median([check_lookup(ix, tk, tv, q_np, "timed")
                                  for _ in range(5)])) * 1e3
     device_breakdown(lambda: ix.lookup(q_np))
-    # bound: the queries in, the triple out, and each distinct 4-byte table
-    # word this batch's walk reads, once (the replay's triple must be the
-    # kernel's, so the words counted are the ones the kernel reads)
-    replay, words, levels = walk_reads(arrs, q)
-    for r, k, what in zip(replay, triple(arrs, q, plain=False),
-                          ("val", "found", "fallback")):
-        if not torch.equal(r, k):
-            raise AssertionError(f"walk replay {what} differs from the kernel")
-    table_read = 4 * (sum(words.values()) + 1)           # + the root word
-    moved = q.numel() * (4 + 4 + 1 + 1) + table_read
+    # bound: the queries in, (val, found) out, and what this batch's walk
+    # and probe need of the tables, each byte once: a 16-byte record per
+    # node, a 4-byte word per key and per val
+    nrow = rp["rows"]
+    table_read = 16 * nrow["node"] + 4 * (nrow["key"] + nrow["val"])
+    moved = q.numel() * (4 + 4 + 1) + table_read
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * levels / F32_FLOPS * 1e3        # one mul + one add a level
+    ops_ms = 2 * rp["predicts"] / F32_FLOPS * 1e3   # mul + add a prediction
     bound_ms = max(bytes_ms, ops_ms)
-    print(f"time per 2^20-query batch on {card}: kernel {ms:.4f} ms, plain "
-          f"version {plain_ms:.4f} ms, whole lookup {lookup_ms:.4f} ms; "
-          f"bound {bound_ms:.4f} ms ({moved} B over HBM: {table_read} B of "
-          f"the {K.table_bytes(arrs)} B tables, distinct words read {words}; "
-          f"{levels} non-dense levels visited)", flush=True)
-    print(f"sizes: {info['n_keys']} keys, table {info['table_bytes']} B, "
-          f"bulk load {info['build_s']:.3f} s, flatten "
-          f"{info['flatten_s']:.3f} s, flush {info['flush_s']:.3f} s; "
-          f"facade lookup ms per batch in the main path "
-          f"{[round(x, 3) for x in info['lookup_ms']]}", flush=True)
+    print(f"time per 2^20-query batch on {card}: kernel {ms:.4f} ms "
+          f"({cold_ms:.4f} ms with a cold L2), plain version "
+          f"{plain_ms:.4f} ms, searchsorted over the pair table "
+          f"{library_ms:.4f} ms, whole lookup {lookup_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({moved} B over HBM: {table_read} B of the "
+          f"{K.table_bytes(arrs)} B tables: distinct node records, key "
+          f"and val words {nrow}; "
+          f"{rp['predicts']} slot predictions)", flush=True)
+    print(f"sizes: {info['n_keys']} keys; after the flush, tables "
+          f"{K.column_bytes(arrs)} B in the column layout, "
+          f"{K.table_bytes(arrs)} B packed; bulk load "
+          f"{info['build_s']:.3f} s, flatten {info['flatten_s']:.3f} s, "
+          f"flush {info['flush_s']:.3f} s; facade lookup ms per batch in the "
+          f"main path {[round(x, 3) for x in info['lookup_ms']]}", flush=True)
     ix.close()
 
     print(card, flush=True)
@@ -417,7 +563,7 @@ def main() -> int:
         launches=launches, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms,
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=None)]}), flush=True)
+        library_ms=library_ms)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

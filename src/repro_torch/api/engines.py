@@ -3,11 +3,11 @@
 
 This slice ports one engine, `KernelEngine`, the counterpart of the
 reference's `PallasEngine`: f32 keys, lookups through the hand-written
-CUDA kernel (`kernels.ops.dili_search`) with the flagged-lane recheck and
-the pair-table recheck, the tombstone overlay resolved over the kernel's
-result, ranges bisecting an f32 `DeviceSnapshot`.  Its `name` stays
-"pallas", so configs and `stats()` read as the reference's.  The local and
-sharded engines come in later slices (see ROADMAP.md).
+CUDA kernel (`kernels.ops.dili_search`, walk and dense-leaf probe in one
+launch) and the pair-table recheck, the tombstone overlay resolved over
+the kernel's result, ranges bisecting an f32 `DeviceSnapshot`.  Its
+`name` stays "pallas", so configs and `stats()` read as the reference's.
+The local and sharded engines come in later slices (see ROADMAP.md).
 
 Range queries are overlay-exact: the device bisects the key-sorted pair
 table with enough headroom to cover pending tombstones, then the (small,
@@ -196,15 +196,13 @@ def _overlay_exact_range(entries, lo, hi, max_hits: int, device_range):
 
 class KernelEngine(EngineTelemetryBase):
     """f32 kernel engine: lookups run the CUDA kernel (its plain version on
-    a CPU device) with the flagged-lane recheck, ranges bisect an f32
-    `DeviceSnapshot`.  Keys are quantized to f32 at the boundary —
-    duplicates after the cast collapse last-write-wins, the documented f32
-    tolerance rule.
+    a CPU device), ranges bisect an f32 `DeviceSnapshot`.  Keys are
+    quantized to f32 at the boundary — duplicates after the cast collapse
+    last-write-wins, the documented f32 tolerance rule.
 
     `kernel_stats` counts, since build: `lookups` (engine calls), `lanes`
-    (padded kernel lanes), `flagged` (lanes the kernel flagged
-    needs_fallback) and `recheck_changed` (miss lanes the pair-table
-    recheck turned into hits)."""
+    (queries sent to the kernel) and `recheck_changed` (miss lanes the
+    pair-table recheck turned into hits)."""
 
     name = "pallas"
 
@@ -217,8 +215,7 @@ class KernelEngine(EngineTelemetryBase):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.telemetry = Telemetry(enabled=cfg.telemetry)
-        self.kernel_stats = dict(lookups=0, lanes=0, flagged=0,
-                                 recheck_changed=0)
+        self.kernel_stats = dict(lookups=0, lanes=0, recheck_changed=0)
         k32, v64 = self._quantize(keys, vals)
         with placement_dtype(np.float32):
             self.dili = bulk_load(k32, v64, **cfg.bulk_load_kw())
@@ -432,7 +429,8 @@ class KernelEngine(EngineTelemetryBase):
     def _stats_extra(self) -> dict:
         return dict(max_depth=self.flat.max_depth,
                     snapshot_keys=int(self.flat.n_pairs),
-                    table_bytes=K.table_bytes(self.arrs),
+                    # the reference's column layout, as on every engine
+                    table_bytes=K.column_bytes(self.arrs),
                     # the CUDA kernel serves every table size
                     kernel_eligible=self.device.type == "cuda",
                     device_bytes=self.snap.nbytes)

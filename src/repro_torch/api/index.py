@@ -221,8 +221,8 @@ class LearnedIndex:
 
     @property
     def kernel_stats(self) -> dict:
-        """The engine's kernel counters (lookups, lanes, flagged lanes,
-        lanes the pair-table recheck changed) — port only."""
+        """The engine's kernel counters (lookups, lanes, lanes the
+        pair-table recheck changed) — port only."""
         return dict(self._engine.kernel_stats)
 
     def inspect(self) -> dict:

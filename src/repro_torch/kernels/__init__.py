@@ -1,3 +1,3 @@
 """The DILI lookup kernel: CUDA source under `csrc/`, its loader and
-wrapper (`dili_search`), its plain PyTorch version (`ref`) and the
-dispatch with the flagged-lane recheck (`ops`)."""
+wrapper (`dili_search`), its plain PyTorch version (`ref`) and the table
+packing and dispatch (`ops`)."""

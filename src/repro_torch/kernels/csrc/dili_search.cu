@@ -1,117 +1,233 @@
-// Batched DILI point lookup (Algorithm 6) for Hopper, sm_90a.
+// Batched DILI point lookup for Hopper, sm_90a: the Alg. 6 walk and the
+// Alg. 1 dense-leaf probe, one thread per query, in one launch.
 //
 // Replaces the Pallas TPU kernel `_kernel` / `dili_search_pallas` in
-// src/repro/kernels/dili_search.py.  Same contract, bit for bit: f32 keys
-// and models, int32 tables, and per query the triple
-// (val int32, found bool, needs_fallback bool).
+// src/repro/kernels/dili_search.py together with the XLA recheck that its
+// wrapper ran on flagged lanes (src/repro/kernels/ops.py::dili_search):
+// per query it returns the final (val, found), bit for bit what that pair
+// returns, which lane for lane is `core/search.py::search_batch` at f32.
+// The TPU kernel stopped at every dense leaf and flagged the lane; at f32
+// placement nearly every lane ends on one, so on this card the flag cost a
+// second pass of the whole batch through dozens of torch kernels.  Here
+// nothing is flagged: a lane that reaches a dense leaf runs the leaf's
+// exponential + binary search in place.
 //
-// What bounds it on this card: a dependent pointer chase.  Each level of
-// the walk is about 8 scattered 4-byte reads per lane (a, b, fo, dense,
-// base of the node, then tag, key, val of the slot), and the next level's
-// address depends on this level's val.  At the index sizes served here the
-// tables (tens of MB at most) sit in the 50 MB L2, so the cost is gather
-// latency, not HBM bandwidth.  The TPU kernel kept every table in VMEM and
-// ran a fixed-trip loop over 2048-lane tiles; here there is no VMEM, so
-// the design is:
-//   * one thread per query, tables read straight from global memory
-//     through the read-only path (__ldg), any table size;
-//   * a per-thread loop over max_depth trips that stops as soon as the lane
-//     is done (hit, miss, child chain ended, dense leaf) — free per-lane
-//     early exit, which a SIMD tile could not have;
-//   * slot prediction as __fadd_rn(a, __fmul_rn(b, q)): two IEEE roundings,
-//     as construction placed the keys (nvcc would contract a + b*q into an
-//     FMA with one rounding otherwise);
-//   * float -> int32 that saturates as XLA does (+inf and >= 2^31 give
-//     INT_MAX, NaN gives 0), then the clip to [0, fo - 1].
-// The kernel allocates nothing and does not synchronise; the C entry point
-// launches it on the caller's stream and returns cudaGetLastError().
+// What bounds it on this card: a dependent chase through tables that sit
+// in the 50 MB L2 (16 B a node, 12 B a slot; 12.5 MB at 1M keys).  Each
+// level's address depends on the last level's payload, and a scattered
+// load costs one 32-byte L2 sector however few of its bytes are used, so
+// the time goes in L2 sectors and their latency, not in HBM bytes or
+// arithmetic.  The design cuts the sectors a lane needs:
+//   * one vector load per node and one per slot.  A node is one 16-byte
+//     record {a bits, b bits, base, fo}, its dense flag in fo's sign
+//     (ld.global.nc.v4); a slot is one 8-byte record {key bits, val}
+//     (ld.global.nc.v2) whose key holds a NaN sentinel for the tags other
+//     than PAIR: kChildBits for a child, the quiet NaN for an empty slot
+//     (see kernels/ops.py::pack_tables).  A level is two sectors instead of
+//     the column layout's six to eight (five node columns, then tag, key
+//     and val).  The slot record is 8 bytes rather than 16: both are one
+//     sector per lane and load, and a replay of the walk counted within
+//     1% the same distinct sectors per warp for either width (PERF.md),
+//     but 8 bytes keep a slot at 12 B with the key column, as in the
+//     column layout, where 16 would make it 20 B of a table that must
+//     stay in L2;
+//   * the dense probe reads the contiguous f32 `key` column, so its
+//     neighbouring probes fall in one sector and hit L1;
+//   * one thread per query, with no persistent grid and no shared-memory
+//     copy of the root: both were measured at the main index and were
+//     slower (the root's slots stay in L1 anyway; see PERF.md).
+// Arithmetic is the reference's: slot prediction as two roundings,
+// add_rn(a, mul_rn(b, q)) (nvcc would contract a + b*q into an FMA with
+// one), floor, a float -> int32 cast that saturates as XLA's does (+inf and
+// >= 2^31 give INT_MAX, NaN gives 0), then the clips.  The probe is
+// `_dense_search`'s: at most 16 doubling and 16 halving steps; a thread
+// stops a phase as soon as the fixed-trip vector code would leave its lane
+// unchanged, which gives the same result.
+//
+// The kernel is a template on the key and payload types; only the f32/i32
+// instance is compiled here (the f64/i64 one is for the local engine).  It
+// allocates nothing and does not synchronise; the C entry point launches
+// on the caller's stream and returns the first CUDA error, or 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
-constexpr int kTagEmpty = 0;
-constexpr int kTagPair = 1;
-constexpr int kTagChild = 2;
 constexpr int kThreads = 256;
+constexpr int kProbeSteps = 16;              // `_dense_search`'s trip counts
 
-__device__ __forceinline__ int sat_f32_to_i32(float x) {
+template <typename Key>
+struct KeyTraits;
+
+template <>
+struct KeyTraits<float> {
+  using Bits = uint32_t;
+  static constexpr Bits kChildBits = 0x7fc00002u;   // CHILD slot sentinel
+  __device__ static Bits bits(float k) { return __float_as_uint(k); }
+  __device__ static float mul_rn(float x, float y) { return __fmul_rn(x, y); }
+  __device__ static float add_rn(float x, float y) { return __fadd_rn(x, y); }
+};
+
+// 16-byte node record; fo < 0 marks a dense leaf of fanout -fo
+template <typename Key>
+struct alignas(16) NodeRec {
+  Key a, b;
+  int base, fo;
+};
+
+// slot record: PAIR -> {key, payload}; CHILD -> {kChildBits, node id};
+// EMPTY -> {quiet NaN, payload}
+template <typename Key, typename Val>
+struct alignas(sizeof(Key) + sizeof(Val)) SlotRec {
+  Key key;
+  Val val;
+};
+
+static_assert(sizeof(NodeRec<float>) == 16, "node record is one v4 load");
+static_assert(sizeof(SlotRec<float, int>) == 8, "slot record is one v2 load");
+
+// read-only vector load of a whole record (ld.global.nc.v4 / .v2)
+template <typename T>
+__device__ __forceinline__ T ld_record(const T* p) {
+  static_assert(sizeof(T) % 16 == 0 || sizeof(T) == 8, "record width");
+  T out;
+  if constexpr (sizeof(T) == 8) {
+    const int2 v = __ldg(reinterpret_cast<const int2*>(p));
+    memcpy(&out, &v, 8);
+  } else {
+#pragma unroll
+    for (int c = 0; c < static_cast<int>(sizeof(T) / 16); ++c) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(p) + c);
+      memcpy(reinterpret_cast<char*>(&out) + 16 * c, &v, 16);
+    }
+  }
+  return out;
+}
+
+template <typename Key>
+__device__ __forceinline__ int sat_to_i32(Key x) {
   // x is already floored; saturate like XLA's convert before the cast
   if (x != x) return 0;
-  if (x >= 2147483648.0f) return 2147483647;
-  if (x < -2147483648.0f) return (-2147483647 - 1);
+  if (x >= Key(2147483648.0)) return 2147483647;
+  if (x < Key(-2147483648.0)) return (-2147483647 - 1);
   return static_cast<int>(x);
 }
 
-__global__ void __launch_bounds__(kThreads)
-dili_search_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                   const int* __restrict__ base, const int* __restrict__ fo,
-                   const int* __restrict__ dense, const int* __restrict__ tag,
-                   const float* __restrict__ key, const int* __restrict__ val,
-                   const int* __restrict__ root,
-                   const float* __restrict__ queries, int64_t nq,
-                   int max_depth, int* __restrict__ out,
-                   bool* __restrict__ found, bool* __restrict__ fallback) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= nq) return;
-  const float q = queries[i];
-  int n = __ldg(root);
-  int o = -1;
-  bool hit = false;
-  bool flag = false;
-  bool done = false;
-  for (int d = 0; d < max_depth; ++d) {
-    if (__ldg(dense + n) > 0) {       // dense leaf: the wrapper rechecks
-      flag = true;
-      done = true;
-      break;
-    }
-    const float an = __ldg(a + n);
-    const float bn = __ldg(b + n);
-    const int fon = __ldg(fo + n);
-    const float p = floorf(__fadd_rn(an, __fmul_rn(bn, q)));
-    const int pos = min(max(sat_f32_to_i32(p), 0), fon - 1);
-    const int s = __ldg(base + n) + pos;
-    const int t = __ldg(tag + s);
-    if (t == kTagChild) {
-      n = __ldg(val + s);
-      continue;
-    }
-    if (t == kTagPair && __ldg(key + s) == q) {
-      o = __ldg(val + s);
-      hit = true;
-    }
-    // EMPTY, or a PAIR with another key: a miss.  Other tags do not occur.
-    if (t == kTagPair || t == kTagEmpty) {
-      done = true;
-      break;
+// floor(a + b*q) clipped to [0, fo - 1], two roundings
+template <typename Key>
+__device__ __forceinline__ int predict_slot(Key a, Key b, Key q, int fo) {
+  using T = KeyTraits<Key>;
+  const int p = sat_to_i32(floor(T::add_rn(a, T::mul_rn(b, q))));
+  return min(max(p, 0), fo - 1);
+}
+
+// `_dense_search` on one lane: exponential search around the model's
+// prediction, then binary search for the first key >= q, then the PAIR
+// test at that slot.  `nd` is a dense node's record (nd.fo < 0).
+template <typename Key, typename Val>
+__device__ __forceinline__ void dense_probe(
+    const NodeRec<Key>& nd, const SlotRec<Key, Val>* __restrict__ slots,
+    const Key* __restrict__ keys, Key q, Val& out, bool& hit) {
+  const int fo = -nd.fo;
+  const int m1 = max(fo - 1, 0);
+  const int pred = min(max(predict_slot(nd.a, nd.b, q, fo), 0), m1);
+  const Key* leaf = keys + nd.base;
+  auto key_at = [&](int i) { return __ldg(leaf + min(max(i, 0), m1)); };
+
+  const bool going_up = key_at(pred) < q;
+  int bound = 1;
+  for (int it = 0; it < kProbeSteps; ++it) {
+    // in range, the clip of pred +- bound is the identity
+    const bool need = going_up
+        ? (pred + bound < m1 && key_at(pred + bound) < q)
+        : (pred - bound > 0 && key_at(pred - bound) > q);
+    if (!need) break;
+    bound *= 2;
+  }
+  int lo = going_up ? pred : max(pred - bound, 0);
+  int hi = going_up ? min(pred + bound, m1) : pred;
+  for (int it = 0; it < kProbeSteps && lo < hi; ++it) {
+    const int mid = (lo + hi) >> 1;            // lo, hi >= 0
+    if (key_at(mid) < q) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
     }
   }
-  out[i] = o;
+  // the record's key equals q only for a PAIR (other tags hold NaN)
+  const SlotRec<Key, Val> s =
+      ld_record(slots + nd.base + min(max(lo, 0), m1));
+  if (s.key == q) {
+    out = s.val;
+    hit = true;
+  }
+}
+
+template <typename Key, typename Val>
+__global__ void __launch_bounds__(kThreads)
+dili_search_kernel(const NodeRec<Key>* __restrict__ nodes,
+                   const SlotRec<Key, Val>* __restrict__ slots,
+                   const Key* __restrict__ keys, int root,
+                   const Key* __restrict__ queries, int64_t nq,
+                   int max_depth, Val* __restrict__ out,
+                   bool* __restrict__ found) {
+  using T = KeyTraits<Key>;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= nq) return;
+  const Key q = queries[i];
+  Val v = Val(-1);
+  bool hit = false;
+  int n = root;
+  NodeRec<Key> nd = ld_record(nodes + n);
+  bool loaded = true;               // nd holds node n's record
+  for (int d = 0; d < max_depth; ++d) {
+    if (!loaded) {
+      nd = ld_record(nodes + n);
+      loaded = true;
+    }
+    if (nd.fo < 0) break;                     // dense leaf: probe below
+    const int pos = predict_slot(nd.a, nd.b, q, nd.fo);
+    const SlotRec<Key, Val> s = ld_record(slots + nd.base + pos);
+    if (T::bits(s.key) == T::kChildBits) {
+      n = static_cast<int>(s.val);
+      loaded = false;
+      continue;
+    }
+    if (s.key == q) {                         // a PAIR holding q
+      v = s.val;
+      hit = true;
+    }
+    nd.fo = 0;                                // done at a non-dense node
+    break;
+  }
+  // a lane still on its way after max_depth trips is probed if the node it
+  // stands on is dense (search_batch's exit does the same)
+  if (!loaded) nd = ld_record(nodes + n);
+  if (nd.fo < 0) dense_probe(nd, slots, keys, q, v, hit);
+  out[i] = v;
   found[i] = hit;
-  fallback[i] = flag || !done;        // dense leaf or ran out of depth
 }
 
 }  // namespace
 
-extern "C" int dili_search_launch(const void* a, const void* b,
-                                  const void* base, const void* fo,
-                                  const void* dense, const void* tag,
-                                  const void* key, const void* val,
-                                  const void* root, const void* queries,
-                                  long long nq, int max_depth, void* out,
-                                  void* found, void* fallback, void* stream) {
+extern "C" int dili_search_f32_launch(const void* nodes, const void* slots,
+                                      const void* keys, int root,
+                                      const void* queries, long long nq,
+                                      int max_depth, void* out, void* found,
+                                      void* stream) {
+  using Key = float;
+  using Val = int;
   if (nq <= 0) return static_cast<int>(cudaSuccess);
   const long long blocks = (nq + kThreads - 1) / kThreads;
-  dili_search_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const int*>(base), static_cast<const int*>(fo),
-      static_cast<const int*>(dense), static_cast<const int*>(tag),
-      static_cast<const float*>(key), static_cast<const int*>(val),
-      static_cast<const int*>(root), static_cast<const float*>(queries),
-      static_cast<int64_t>(nq), max_depth, static_cast<int*>(out),
-      static_cast<bool*>(found), static_cast<bool*>(fallback));
+  dili_search_kernel<Key, Val>
+      <<<static_cast<unsigned int>(blocks), kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const NodeRec<Key>*>(nodes),
+          static_cast<const SlotRec<Key, Val>*>(slots),
+          static_cast<const Key*>(keys), root,
+          static_cast<const Key*>(queries), static_cast<int64_t>(nq),
+          max_depth, static_cast<Val*>(out), static_cast<bool*>(found));
   return static_cast<int>(cudaGetLastError());
 }

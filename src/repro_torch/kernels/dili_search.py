@@ -1,13 +1,16 @@
 """Loader and wrapper of the CUDA DILI lookup kernel
 (`csrc/dili_search.cu`), the port of the Pallas kernel in
-`repro/kernels/dili_search.py`.
+`repro/kernels/dili_search.py` together with the XLA recheck of its
+flagged lanes: one launch returns each query's final (val, found).
 
 Build: at first use on a CUDA tensor, `nvcc` compiles the source for
 `sm_90a` into a shared library with a plain C entry point under
 `kernels/_build/` (listed in .gitignore), named by the source's hash so an
-edited source is rebuilt.  The library is loaded with `ctypes` and the
-kernel launches on PyTorch's current stream.  Nothing here runs at import
-time, so the CPU tests import this module on machines with no compiler.
+edited source is rebuilt; a fresh build keeps ptxas's register and
+shared-memory report in `kernel.ptxas_report`.  The library is loaded
+with `ctypes` and the kernel launches on PyTorch's current stream.
+Nothing here runs at import time, so the CPU tests import this module on
+machines with no compiler.
 
 Dispatch: a CUDA tensor launches the kernel or raises (no `nvcc`, a
 failed build, a refused launch); a CPU tensor runs the plain version
@@ -30,12 +33,10 @@ import torch
 from ..obs import watchdog
 from .ref import dili_search_ref
 
-BLOCK_Q = 2048   # query padding granule kept from the TPU kernel (ops.py)
-
 _SRC = Path(__file__).parent / "csrc" / "dili_search.cu"
 _BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _find_nvcc() -> str:
@@ -60,6 +61,7 @@ class DiliSearchKernel:
         self._lock = threading.Lock()
         self.launches = 0
         self.build_s = 0.0          # wall seconds of the build, 0 until built
+        self.ptxas_report = ""      # `-Xptxas -v` lines of a fresh build
 
     @property
     def built(self) -> bool:
@@ -85,24 +87,29 @@ class DiliSearchKernel:
                         f"{_SRC.name}:\n{res.stdout}\n{res.stderr}")
                 os.replace(tmp, lib_path)
                 watchdog.note_compile()
+                self.ptxas_report = "\n".join(
+                    ln for ln in (res.stdout + res.stderr).splitlines()
+                    if "ptxas info" in ln)
             lib = ctypes.CDLL(str(lib_path))
-            fn = lib.dili_search_launch
-            fn.argtypes = ([ctypes.c_void_p] * 10
-                           + [ctypes.c_longlong, ctypes.c_int]
-                           + [ctypes.c_void_p] * 4)
+            fn = lib.dili_search_f32_launch
+            fn.argtypes = ([ctypes.c_void_p] * 3
+                           + [ctypes.c_int, ctypes.c_void_p,
+                              ctypes.c_longlong, ctypes.c_int]
+                           + [ctypes.c_void_p] * 3)
             fn.restype = ctypes.c_int
             self._lib = lib
             self.build_s = time.perf_counter() - t0
 
-    def launch(self, tables: tuple, queries: torch.Tensor, max_depth: int,
-               out: torch.Tensor, found: torch.Tensor,
-               fallback: torch.Tensor) -> None:
+    def launch(self, node_rec: torch.Tensor, slot_rec: torch.Tensor,
+               key: torch.Tensor, queries: torch.Tensor, root: int,
+               max_depth: int, out: torch.Tensor,
+               found: torch.Tensor) -> None:
         self.build()
         stream = torch.cuda.current_stream(queries.device).cuda_stream
-        err = self._lib.dili_search_launch(
-            *(t.data_ptr() for t in tables), queries.data_ptr(),
-            queries.numel(), int(max_depth), out.data_ptr(),
-            found.data_ptr(), fallback.data_ptr(), stream)
+        err = self._lib.dili_search_f32_launch(
+            node_rec.data_ptr(), slot_rec.data_ptr(), key.data_ptr(),
+            int(root), queries.data_ptr(), queries.numel(), int(max_depth),
+            out.data_ptr(), found.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"dili_search kernel launch failed: CUDA "
                                f"error {err}")
@@ -115,58 +122,54 @@ kernel = DiliSearchKernel()
 watchdog.register_jit_provider("kernels.dili_search",
                                lambda: int(kernel.built))
 
-_F32 = ("a", "b", "key")
-_NAMES = ("a", "b", "base", "fo", "dense", "tag", "key", "val", "root")
 
-
-def _check(tables: dict, queries: torch.Tensor) -> None:
+def _check(node_rec: torch.Tensor, slot_rec: torch.Tensor,
+           key: torch.Tensor, queries: torch.Tensor, root: int,
+           max_depth: int) -> None:
     dev = queries.device
     if queries.dtype != torch.float32 or queries.dim() != 1:
         raise TypeError(f"queries must be 1-D float32, got "
                         f"{queries.dtype} {tuple(queries.shape)}")
     if not queries.is_contiguous():
         raise ValueError("queries must be contiguous")
-    for name in _NAMES:
-        t = tables[name]
-        want = torch.float32 if name in _F32 else torch.int32
-        if t.dtype != want or t.dim() != 1:
-            raise TypeError(f"{name} must be 1-D {want}, got {t.dtype} "
+    for name, t, dtype, width, align in (
+            ("node_rec", node_rec, torch.int32, 4, 16),
+            ("slot_rec", slot_rec, torch.int32, 2, 8),
+            ("key", key, torch.float32, None, 4)):
+        shape = (t.shape[0], width) if width else (t.shape[0],)
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            want = f"[n, {width}]" if width else "[n]"
+            raise TypeError(f"{name} must be {dtype} {want}, got {t.dtype} "
                             f"{tuple(t.shape)}")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, queries on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    n_nodes = tables["a"].numel()
-    n_slots = tables["tag"].numel()
-    for name in ("b", "base", "fo", "dense"):
-        if tables[name].numel() != n_nodes:
-            raise ValueError(f"{name} has {tables[name].numel()} rows, "
-                             f"a has {n_nodes}")
-    for name in ("key", "val"):
-        if tables[name].numel() != n_slots:
-            raise ValueError(f"{name} has {tables[name].numel()} rows, "
-                             f"tag has {n_slots}")
-    if tables["root"].numel() != 1:
-        raise ValueError("root must hold exactly one node id")
+        if dev.type == "cuda" and t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
+    if slot_rec.shape[0] != key.shape[0]:
+        raise ValueError(f"slot_rec has {slot_rec.shape[0]} rows, key has "
+                         f"{key.shape[0]}")
+    if not 0 <= int(root) < node_rec.shape[0]:
+        raise ValueError(f"root {root} is not a node of {node_rec.shape[0]}")
+    if int(max_depth) < 0:
+        raise ValueError(f"max_depth must be >= 0, got {max_depth}")
 
 
-def dili_search(a, b, base, fo, dense, tag, key, val, root, queries,
+def dili_search(node_rec, slot_rec, key, queries, root: int,
                 max_depth: int):
-    """(vals i32, found bool, needs_fallback bool) for a batch of f32
-    queries over the kernel tables (`ops.kernel_arrays`).  CUDA tensors
+    """(vals i32, found bool) for a batch of f32 queries over the kernel
+    tables (`ops.pack_tables`); vals is -1 where not found.  CUDA tensors
     launch the kernel; CPU tensors run the plain version."""
-    tables = dict(a=a, b=b, base=base, fo=fo, dense=dense, tag=tag, key=key,
-                  val=val, root=root)
-    _check(tables, queries)
+    _check(node_rec, slot_rec, key, queries, root, max_depth)
     if queries.device.type == "cpu":
-        return dili_search_ref(a, b, base, fo, dense, tag, key, val, root,
-                               queries, max_depth)
+        return dili_search_ref(node_rec, slot_rec, key, queries, root,
+                               max_depth)
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
     nq = queries.numel()
     out = torch.empty(nq, dtype=torch.int32, device=queries.device)
     found = torch.empty(nq, dtype=torch.bool, device=queries.device)
-    fallback = torch.empty(nq, dtype=torch.bool, device=queries.device)
-    kernel.launch((a, b, base, fo, dense, tag, key, val, root), queries,
-                  max_depth, out, found, fallback)
-    return out, found, fallback
+    kernel.launch(node_rec, slot_rec, key, queries, root, max_depth, out,
+                  found)
+    return out, found

@@ -1,54 +1,49 @@
 """Plain PyTorch version of the DILI lookup kernel (port of
-`repro/kernels/ref.py`).
+`repro/kernels/ref.py`, extended by the dense-leaf probe).
 
-Mirrors the kernel's semantics exactly: f32 keys/models, mul-then-add
-slot prediction with two roundings, XLA's saturating float->int32 cast,
-fixed `max_depth` traversal, no dense-leaf handling (dense lanes are
-flagged for the wrapper's recheck — see ops.py).  The CPU tests hold it
-against the Pallas kernel; on the card the CUDA kernel is held against it.
+The same function as `csrc/dili_search.cu` on the same tables: decode the
+packed records (`ops.pack_tables`) back into columns and run
+`core/search.py::search_batch`, the Alg. 6 walk with its Alg. 1 dense
+probe, at the given `max_depth`.  f32 keys and models, mul-then-add slot
+prediction with two roundings, XLA's saturating float->int32 cast.  The
+CPU tests hold it against the JAX package's `kernels/ops.py::dili_search`
+(the Pallas kernel plus its XLA recheck); on the card the CUDA kernel is
+held against it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.search import predict_slot
+from ..core import search as S
+from ..core.flat import TAG_CHILD, TAG_EMPTY, TAG_PAIR
 
-TAG_EMPTY, TAG_PAIR, TAG_CHILD = 0, 1, 2
+CHILD_KEY_BITS = 0x7FC00002      # slot record key of a CHILD slot (a NaN)
+EMPTY_KEY_BITS = 0x7FC00000      # ... of an EMPTY slot (the quiet NaN)
 
 
-def dili_search_ref(a, b, base, fo, dense, tag, key, val, root, queries,
+def unpack_tables(node_rec, slot_rec, key) -> dict:
+    """The column tables (`a, b, base, fo, dense, tag, key, val`) that the
+    records hold, as `core.search` reads them."""
+    kbits = slot_rec[:, 0]
+    fo_signed = node_rec[:, 3]
+    pair = torch.full_like(kbits, TAG_PAIR)
+    tag = torch.where(kbits == CHILD_KEY_BITS, torch.full_like(kbits,
+                                                               TAG_CHILD),
+                      torch.where(torch.isnan(kbits.view(torch.float32)),
+                                  torch.full_like(kbits, TAG_EMPTY), pair))
+    return dict(a=node_rec[:, 0].view(torch.float32),
+                b=node_rec[:, 1].view(torch.float32),
+                base=node_rec[:, 2], fo=fo_signed.abs(),
+                dense=(fo_signed < 0).to(torch.int32), tag=tag, key=key,
+                val=slot_rec[:, 1])
+
+
+def dili_search_ref(node_rec, slot_rec, key, queries, root: int,
                     max_depth: int):
-    """Returns (vals i32, found bool, needs_fallback bool) per query.
-    `root` is a scalar (int or 0-d/1-element int32 tensor)."""
-    q = queries
-    dev = q.device
-    n = torch.zeros(q.shape, dtype=torch.int32, device=dev) + root
-    done = torch.zeros(q.shape, dtype=torch.bool, device=dev)
-    out = torch.full(q.shape, -1, dtype=torch.int32, device=dev)
-    found = torch.zeros_like(done)
-    fallback = torch.zeros_like(done)
-
-    for _ in range(max_depth):
-        ni = n.long()
-        an = a[ni]
-        bn = b[ni]
-        fon = fo[ni]
-        is_dense = dense[ni] > 0
-        pos = predict_slot(an, bn, q, fon)
-        s = (base[ni] + pos).long()
-        t = tag[s]
-        sk = key[s]
-        sv = val[s]
-        active = ~done & ~is_dense
-        is_child = (t == TAG_CHILD) & active
-        hit = (t == TAG_PAIR) & (sk == q) & active
-        miss = ((t == TAG_EMPTY) | ((t == TAG_PAIR) & (sk != q))) & active
-        out = torch.where(hit, sv, out)
-        found = found | hit
-        fallback = fallback | (is_dense & ~done)
-        n = torch.where(is_child, sv, n)
-        done = done | hit | miss | (is_dense & ~done)
-
-    fallback = fallback | ~done   # ran out of depth: the wrapper rechecks
-    return out, found, fallback
+    """Returns (vals i32, found bool) per query; vals is -1 where not
+    found."""
+    idx = unpack_tables(node_rec, slot_rec, key)
+    idx.update(root=torch.tensor(int(root), dtype=torch.int32,
+                                 device=queries.device), has_dense=True)
+    return S.search_batch(idx, queries, max_depth=int(max_depth))

@@ -290,11 +290,16 @@ def test_build_f32_index_matches_jax():
     jf, tf = J_flat.flatten(jd), T_flat.flatten(td)
     ja = {k: np.asarray(v) for k, v in J_ops.kernel_arrays(jf).items()}
     ta = T_ops.kernel_arrays(tf, device="cpu")
-    assert set(ja) == set(ta)
-    for k, v in ja.items():
-        if k == "max_depth":
-            assert ta[k] == int(v)
-            continue
-        assert ta[k].numpy().dtype == v.dtype, k
-        np.testing.assert_array_equal(ta[k].numpy(), v, err_msg=k)
-    assert T_ops.table_bytes(ta) == J_ops.table_bytes(J_ops.kernel_arrays(jf))
+    # the port's tables are the reference's columns, packed
+    want = T_ops.pack_tables(ja, device="cpu")
+    assert set(ta) == set(want)
+    for k, v in want.items():
+        if isinstance(v, torch.Tensor):
+            assert ta[k].dtype == v.dtype, k
+            np.testing.assert_array_equal(ta[k].numpy(), v.numpy(),
+                                          err_msg=k)
+        else:
+            assert ta[k] == v, k
+    assert ta["max_depth"] == int(ja["max_depth"])
+    assert T_ops.column_bytes(ta) == J_ops.table_bytes(
+        J_ops.kernel_arrays(jf))

@@ -16,7 +16,6 @@ from repro_torch.kernels import dili_search as T_kernel
 from repro_torch.kernels import ops as K
 
 pytestmark = pytest.mark.cuda
-NAMES = ("a", "b", "base", "fo", "dense", "tag", "key", "val", "root")
 
 
 @pytest.fixture(scope="module")
@@ -32,24 +31,47 @@ def logn20k():
     return keys32, flatten(d)
 
 
-def _triple(arrs, q):
-    return T_kernel.dili_search(*(arrs[k] for k in NAMES), q,
-                                max_depth=arrs["max_depth"])
+def _pair(arrs, q, max_depth=None):
+    md = arrs["max_depth"] if max_depth is None else max_depth
+    return T_kernel.dili_search(arrs["node_rec"], arrs["slot_rec"],
+                                arrs["key"], q, root=arrs["root"],
+                                max_depth=md)
+
+
+def _queries(keys32):
+    mids = ((keys32[:-1].astype(np.float64) + keys32[1:]) / 2).astype(
+        np.float32)
+    return np.concatenate([keys32, mids, keys32[:777],
+                           [np.inf, 3e9, -np.inf, 0.0, 1e30, np.nan]]).astype(
+                               np.float32)
 
 
 def test_kernel_matches_plain_version(gpu, logn20k):
     keys32, f = logn20k
     assert f.dense.any()
-    mids = ((keys32[:-1].astype(np.float64) + keys32[1:]) / 2).astype(
-        np.float32)
-    q = np.concatenate([keys32, mids, keys32[:777],
-                        [np.inf, 3e9, -np.inf, 0.0, 1e30]]).astype(np.float32)
-    cpu = _triple(K.kernel_arrays(f, device="cpu"), torch.from_numpy(q))
+    q = _queries(keys32)
+    cpu = _pair(K.kernel_arrays(f, device="cpu"), torch.from_numpy(q))
     before = T_kernel.kernel.launches
-    out = _triple(K.kernel_arrays(f, device=gpu), torch.from_numpy(q).to(gpu))
+    out = _pair(K.kernel_arrays(f, device=gpu), torch.from_numpy(q).to(gpu))
     torch.cuda.synchronize()
     assert T_kernel.kernel.launches == before + 1
-    assert cpu[2].any()                                  # dense lanes flagged
+    for g, w in zip(out, cpu):
+        assert torch.equal(g.cpu(), w)
+    assert bool(cpu[1][:len(keys32)].all())
+
+
+@pytest.mark.parametrize("max_depth_cut", [1, 2])
+def test_kernel_matches_plain_version_short_depth(gpu, logn20k,
+                                                  max_depth_cut):
+    """Trips short of the snapshot's depth (lanes left standing on a dense
+    leaf are probed on exit): equal to the plain version."""
+    keys32, f = logn20k
+    q = _queries(keys32)
+    md = int(f.max_depth) - max_depth_cut
+    cpu = _pair(K.kernel_arrays(f, device="cpu"), torch.from_numpy(q),
+                max_depth=md)
+    out = _pair(K.kernel_arrays(f, device=gpu), torch.from_numpy(q).to(gpu),
+                max_depth=md)
     for g, w in zip(out, cpu):
         assert torch.equal(g.cpu(), w)
 
@@ -58,7 +80,7 @@ def test_kernel_rejects_mixed_devices(gpu, logn20k):
     keys32, f = logn20k
     arrs = K.kernel_arrays(f, device=gpu)
     with pytest.raises(ValueError):
-        _triple(arrs, torch.from_numpy(keys32[:64]))     # queries on the CPU
+        _pair(arrs, torch.from_numpy(keys32[:64]))       # queries on the CPU
 
 
 def test_facade_on_gpu_matches_cpu(gpu):

@@ -1,39 +1,45 @@
-"""The port's lookup kernel against the Pallas kernel.
+"""The port's lookup kernel against the reference's.
 
-The cases of tests/test_kernels.py, run through the port's plain version
-(the CPU path of `repro_torch.kernels.dili_search`) and its dispatch
-(`ops.dili_search`) against `dili_search_pallas(..., interpret=True)` and
-`repro.kernels.ref.dili_search_ref` on identical tables.  Bit-exact: the
-outputs are int32 values and bools.  The CUDA kernel against this plain
-version is tests/test_torch_cuda.py (needs a card, imports no JAX).
+The function under test is the reference's `repro.kernels.ops.dili_search`
+(the Pallas kernel in interpret mode plus the XLA recheck of the lanes it
+flags), which the port computes in one kernel: the walk and the dense-leaf
+probe.  Here the port runs its plain version (the CPU path of
+`repro_torch.kernels.dili_search`) on tables packed from the reference's
+own `kernel_arrays`.  Bit-exact: the outputs are int32 values and bools.
+The CUDA kernel against this plain version is tests/test_torch_cuda.py
+(needs a card, imports no JAX).
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import search as J_search
 from repro.core.dili import placement_dtype as j_placement
-from repro.core.flat import flatten
+from repro.core.flat import TAG_CHILD, TAG_EMPTY, TAG_PAIR, flatten
 from repro.kernels import ops as J_ops
 from repro.kernels.dili_search import dili_search_pallas
 from repro.kernels.ref import dili_search_ref as j_ref
-from repro_torch.api.snapshot import from_numpy_tables
 from repro_torch.kernels import dili_search as T_kernel
 from repro_torch.kernels import ops as T_ops
+from repro_torch.kernels import ref as T_ref
 from tests.conftest import make_keys
 
 NAMES = ("a", "b", "base", "fo", "dense", "tag", "key", "val", "root")
 
 
+def tables(jarr) -> dict:
+    """The reference's kernel tables and the port's, packed from them."""
+    return dict(jarr=jarr, tarr=T_ops.pack_tables(
+        {k: np.asarray(v) for k, v in jarr.items()}, device="cpu"))
+
+
 def build(dist, n, seed=21):
-    """Reference build; the port gets the same tables as tensors."""
+    """Reference build; the port gets the same tables, packed."""
     keys = make_keys(dist, n, np.random.default_rng(seed))
     d, keys32 = J_ops.build_f32_index(keys)
     f = flatten(d)
-    jarr = J_ops.kernel_arrays(f)
-    tarr = from_numpy_tables({k: np.asarray(v) for k, v in jarr.items()},
-                             device="cpu")
-    return dict(keys32=keys32, d=d, f=f, jarr=jarr, tarr=tarr)
+    return dict(keys32=keys32, d=d, f=f, **tables(J_ops.kernel_arrays(f)))
 
 
 @pytest.fixture(scope="module")
@@ -48,39 +54,47 @@ def cached():
     return get
 
 
-def port_triple(b, q):
+def port_pair(b, q, max_depth=None):
     t = b["tarr"]
-    out = T_kernel.dili_search(*(t[k] for k in NAMES), torch.from_numpy(q),
-                               max_depth=t["max_depth"])
+    md = t["max_depth"] if max_depth is None else max_depth
+    out = T_kernel.dili_search(t["node_rec"], t["slot_rec"], t["key"],
+                               torch.from_numpy(q), root=t["root"],
+                               max_depth=md)
     return [x.numpy() for x in out]
 
 
-def pallas_triple(b, q, block_q=T_kernel.BLOCK_Q):
-    j = b["jarr"]
-    pad = (-len(q)) % block_q
-    qp = np.concatenate([q, np.full(pad, np.inf, np.float32)])
-    out = dili_search_pallas(*(j[k] for k in NAMES), jnp.asarray(qp),
-                             max_depth=j["max_depth"], interpret=True,
-                             block_q=block_q)
-    return [np.asarray(x)[: len(q)] for x in out]
-
-
-def ref_triple(b, q):
-    j = b["jarr"]
-    out = j_ref(*(j[k] for k in NAMES[:-1]), j["root"][0], jnp.asarray(q),
-                j["max_depth"])
+def ref_pair(b, q):
+    """The reference's dispatch: Pallas kernel (interpret) + XLA recheck."""
+    out = J_ops.dili_search(b["jarr"], jnp.asarray(q), interpret=True)
     return [np.asarray(x) for x in out]
 
 
-def assert_triples_equal(b, q, got, want):
+def pallas_pair(b, q, block_q):
+    """`ref_pair` with the Pallas kernel tiled by `block_q` lanes."""
+    j = b["jarr"]
+    pad = (-len(q)) % block_q
+    qp = jnp.asarray(np.concatenate([q, np.full(pad, np.inf, np.float32)]))
+    out, found, fb = dili_search_pallas(
+        *(j[k] for k in NAMES), qp, max_depth=j["max_depth"],
+        interpret=True, block_q=block_q)
+    v2, f2 = J_search.search_batch(J_ops._as_search_idx(j), qp,
+                                   max_depth=j["max_depth"])
+    out = jnp.where(fb, v2, out)
+    found = jnp.where(fb, f2, found)
+    return [np.asarray(x)[: len(q)] for x in (out, found)]
+
+
+def assert_pairs_equal(b, q, got, want):
     """Bit equality; on a mismatch, name the side the host walk
     (`DILI.search` under f32 placement) disagrees with."""
     for g, w in zip(got, want):
         bad = np.nonzero(g != w)[0]
         if len(bad):
             i = int(bad[0])
-            with j_placement(np.float32):
-                host = b["d"].search(float(q[i]))
+            host = None
+            if "d" in b:
+                with j_placement(np.float32):
+                    host = b["d"].search(float(q[i]))
             pytest.fail(f"lane {i} (q={q[i]!r}): port {g[i]} vs reference "
                         f"{w[i]}; host walk says {host}")
 
@@ -93,24 +107,23 @@ def test_kernel_matches_truth_and_pallas(dist, n, cached):
     rng = np.random.default_rng(22)
     qi = rng.integers(0, len(keys32), 4096)
     q = keys32[qi]
-    got = port_triple(b, q)
-    assert_triples_equal(b, q, got, pallas_triple(b, q))
-    assert_triples_equal(b, q, got, ref_triple(b, q))
+    got = port_pair(b, q)
+    assert_pairs_equal(b, q, got, ref_pair(b, q))
+    assert bool(got[1].all())
+    assert np.array_equal(got[0], qi)
     v, fnd = T_ops.dili_search(b["tarr"], torch.from_numpy(q))
-    assert bool(fnd.all())
-    assert np.array_equal(v.numpy(), qi)
-    jv, jf = J_ops.dili_search(b["jarr"], jnp.asarray(q))
-    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
-    np.testing.assert_array_equal(fnd.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(v.numpy(), got[0])
+    np.testing.assert_array_equal(fnd.numpy(), got[1])
 
 
 @pytest.mark.parametrize("block_q", [512, 2048])
 def test_kernel_matches_pallas_block_sizes(block_q, cached):
+    """A ragged batch (no multiple of either tile) against the reference
+    tiled two ways."""
     b = cached("logn", 20000)
     rng = np.random.default_rng(23)
-    q = b["keys32"][rng.integers(0, len(b["keys32"]), 4096)]
-    assert_triples_equal(b, q, port_triple(b, q),
-                         pallas_triple(b, q, block_q=block_q))
+    q = b["keys32"][rng.integers(0, len(b["keys32"]), 3001)]
+    assert_pairs_equal(b, q, port_pair(b, q), pallas_pair(b, q, block_q))
 
 
 def test_kernel_misses_no_false_positives(cached):
@@ -121,78 +134,268 @@ def test_kernel_misses_no_false_positives(cached):
     mids = ((keys32[qi].astype(np.float64)
              + keys32[qi + 1].astype(np.float64)) / 2).astype(np.float32)
     ok = (mids != keys32[qi]) & (mids != keys32[qi + 1])
-    assert_triples_equal(b, mids, port_triple(b, mids),
-                         pallas_triple(b, mids))
-    v, fnd = T_ops.dili_search(b["tarr"], torch.from_numpy(mids))
-    assert not fnd.numpy()[ok].any()
-    jv, jf = J_ops.dili_search(b["jarr"], jnp.asarray(mids))
-    np.testing.assert_array_equal(fnd.numpy(), np.asarray(jf))
+    got = port_pair(b, mids)
+    assert_pairs_equal(b, mids, got, ref_pair(b, mids))
+    assert not got[1][ok].any()
+    assert (got[0][~got[1]] == -1).all()
 
 
 def test_kernel_pads_ragged_batch(cached):
+    """A batch of 777 lanes needs no padding: the lane count is the
+    caller's."""
     b = cached("logn", 5000)
-    q = b["keys32"][:777]                            # not a block multiple
+    q = b["keys32"][:777]
     stats = {}
     v, fnd = T_ops.dili_search(b["tarr"], torch.from_numpy(q), stats=stats)
     assert fnd.shape == (777,) and bool(fnd.all())
     assert np.array_equal(v.numpy(), np.arange(777))
-    assert stats["lanes"] == T_kernel.BLOCK_Q
-    assert_triples_equal(b, q, port_triple(b, q), pallas_triple(b, q))
+    assert stats["lanes"] == 777
+    assert_pairs_equal(b, q, port_pair(b, q), ref_pair(b, q))
 
 
 def test_out_of_range_and_pad_lanes(cached):
-    """+inf pad lanes and queries far above/below the key range: XLA's
+    """+inf pad lanes, NaN and queries far above/below the key range: XLA's
     saturating cast sends them to the last/first slot; never a hit."""
     b = cached("fb", 2000)
     k = b["keys32"]
     q = np.asarray([np.inf, 3e9, 1e30, k[-1] * 2, -1e30, -np.inf, 0.0,
-                    k[0], k[-1]], np.float32)
-    got = port_triple(b, q)
-    assert_triples_equal(b, q, got, pallas_triple(b, q))
-    assert not got[1][:7].any()
-    v, fnd = T_ops.dili_search(b["tarr"], torch.from_numpy(q))
-    assert fnd.numpy().tolist() == [False] * 7 + [True, True]
-    jv, jf = J_ops.dili_search(b["jarr"], jnp.asarray(q))
-    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+                    np.nan, -3e9, k[0], k[-1]], np.float32)
+    got = port_pair(b, q)
+    assert_pairs_equal(b, q, got, ref_pair(b, q))
+    assert got[1].tolist() == [False] * 9 + [True, True]
 
 
-def test_dense_leaf_table_recheck(cached):
-    """logn at f32 placement has dense leaves: the kernel flags their lanes
-    and the dispatch's whole-batch recheck resolves them, as the
-    reference's does."""
+def test_dense_leaf_table_recheck(cached, monkeypatch):
+    """logn at f32 placement has dense leaves.  The reference's kernel flags
+    their lanes and rechecks the batch in XLA; the port resolves them in
+    its one kernel call, with nothing run after it."""
     b = cached("logn", 20000)
     assert b["f"].dense.any()
     rng = np.random.default_rng(25)
     keys32 = b["keys32"]
     qi = rng.integers(0, len(keys32), 4096)
     q = keys32[qi]
-    got = port_triple(b, q)
-    assert got[2].any()                              # some lanes flagged
-    assert_triples_equal(b, q, got, pallas_triple(b, q))
-    stats = {}
-    v, fnd = T_ops.dili_search(b["tarr"], torch.from_numpy(q), stats=stats)
-    assert stats["flagged"] == int(got[2].sum())
+    j = b["jarr"]
+    flagged = np.asarray(j_ref(*(j[k] for k in NAMES[:-1]), j["root"][0],
+                               jnp.asarray(q), j["max_depth"])[2])
+    assert flagged.mean() > 0.5                     # most lanes end dense
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(args[3].numel())
+        return T_kernel.dili_search(*args, **kw)
+
+    monkeypatch.setattr(T_ops, "dili_search_kernel", counted)
+    v, fnd = T_ops.dili_search(b["tarr"], torch.from_numpy(q))
+    assert calls == [4096]
     assert bool(fnd.all()) and np.array_equal(v.numpy(), qi)
-    jv, jf = J_ops.dili_search(b["jarr"], jnp.asarray(q))
-    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    assert_pairs_equal(b, q, [v.numpy(), fnd.numpy()], ref_pair(b, q))
 
 
 def test_wrapper_rejects_bad_inputs(cached):
     b = cached("logn", 2000)
     t = dict(b["tarr"])
     q = torch.from_numpy(b["keys32"][:64])
-    args = [t[k] for k in NAMES]
+    recs = [t["node_rec"], t["slot_rec"], t["key"]]
+    kw = dict(root=t["root"], max_depth=t["max_depth"])
     with pytest.raises(TypeError):
-        T_kernel.dili_search(*args, q.double(), max_depth=t["max_depth"])
-    bad = list(args)
+        T_kernel.dili_search(*recs, q.double(), **kw)
+    bad = list(recs)
     bad[0] = bad[0].double()
     with pytest.raises(TypeError):
-        T_kernel.dili_search(*bad, q, max_depth=t["max_depth"])
+        T_kernel.dili_search(*bad, q, **kw)
     with pytest.raises(ValueError):
-        T_kernel.dili_search(*args, torch.from_numpy(
-            b["keys32"][:128])[::2], max_depth=t["max_depth"])
-    bad = list(args)
-    bad[1] = bad[1][:-1]
+        T_kernel.dili_search(*recs, torch.from_numpy(
+            b["keys32"][:128])[::2], **kw)
+    bad = list(recs)
+    bad[2] = bad[2][:-1]
     with pytest.raises(ValueError):
-        T_kernel.dili_search(*bad, q, max_depth=t["max_depth"])
+        T_kernel.dili_search(*bad, q, **kw)
+    with pytest.raises(ValueError):
+        T_kernel.dili_search(*recs, q, root=t["node_rec"].shape[0],
+                             max_depth=t["max_depth"])
 
+
+# ---------------------------------------------------------------------------
+# the dense probe's edges, on hand-made tables
+# ---------------------------------------------------------------------------
+
+BIG = (1 << 17) + 8          # a dense leaf wider than 16 doublings reach
+
+
+def synthetic() -> dict:
+    """Root (slot = floor(q)) over seven children and an empty slot:
+      [0,1) dense, fanout 1;  [1,2) dense, 8 keys, model biased low;
+      [2,3) dense, 300 keys, prediction always 0;
+      [3,4) dense, 300 keys, prediction always clipped to m1;
+      [4,5) / [5,6) dense, BIG keys, prediction 0 / m1 (the 16-step cuts);
+      [6,7) non-dense leaf: PAIR, PAIR with a NaN key, PAIR, CHILD -> a
+      dense leaf of 2 keys one level deeper; [7,8) EMPTY."""
+    f32 = np.float32
+    leaves = [  # (a, b, keys, dense)
+        (0.0, 0.0, [0.5], True),
+        (-12.0, 8.0, [1.25 + 0.0625 * i for i in range(8)], True),
+        (0.0, 0.0, [2 + i / 512 for i in range(300)], True),
+        (1000.0, 0.0, [3 + i / 512 for i in range(300)], True),
+        (0.0, 0.0, list(4 + np.arange(BIG) * 2.0 ** -18), True),
+        (1e9, 0.0, list(5 + np.arange(BIG) * 2.0 ** -18), True),
+    ]
+    a, b, base, fo, dense = [0.0], [1.0], [0], [8], [0]
+    tag = [TAG_CHILD] * 7 + [TAG_EMPTY]
+    key = [0.0] * 8
+    val = list(range(1, 8)) + [0]
+    for i, (la, lb, ks, dn) in enumerate(leaves):
+        a.append(la), b.append(lb), base.append(len(tag))
+        fo.append(len(ks)), dense.append(int(dn))
+        tag += [TAG_PAIR] * len(ks)
+        key += ks
+        val += [100 * (i + 1) + j for j in range(len(ks))]
+    # node 7: non-dense leaf over [6,7), slot = floor(4q - 24)
+    a.append(-24.0), b.append(4.0), base.append(len(tag))
+    fo.append(4), dense.append(0)
+    tag += [TAG_PAIR, TAG_PAIR, TAG_PAIR, TAG_CHILD]
+    key += [6.0, np.nan, 6.5, 0.0]
+    val += [700, 701, 702, 8]
+    # node 8: dense leaf of 2 keys at depth 3
+    a.append(0.0), b.append(0.0), base.append(len(tag))
+    fo.append(2), dense.append(1)
+    tag += [TAG_PAIR, TAG_PAIR]
+    key += [6.8, 6.9]
+    val += [800, 801]
+    jarr = dict(a=jnp.asarray(a, f32), b=jnp.asarray(b, f32),
+                base=jnp.asarray(base, np.int32),
+                fo=jnp.asarray(fo, np.int32),
+                dense=jnp.asarray(dense, np.int32),
+                tag=jnp.asarray(tag, np.int32), key=jnp.asarray(key, f32),
+                val=jnp.asarray(val, np.int32),
+                root=jnp.asarray([0], np.int32), max_depth=3)
+    return tables(jarr)
+
+
+@pytest.fixture(scope="module")
+def syn():
+    return synthetic()
+
+
+def _leaf_keys(syn, node):
+    t = syn["jarr"]
+    s = int(t["base"][node])
+    return np.asarray(t["key"])[s: s + int(t["fo"][node])]
+
+
+def _around(keys):
+    """Every key, the midpoints between neighbours, and the floats just
+    below the first and just above the last."""
+    keys = np.asarray(keys, np.float32)
+    mids = ((keys[:-1].astype(np.float64) + keys[1:]) / 2).astype(np.float32)
+    edge = [np.nextafter(keys[0], np.float32(-np.inf)),
+            np.nextafter(keys[-1], np.float32(np.inf))]
+    return np.concatenate([keys, mids, np.asarray(edge, np.float32)])
+
+
+PROBE_CASES = {
+    "fanout_1": [1],
+    "below_and_above": [2, 3, 4],          # pred clipped at 0 and at m1
+    "cut_by_16_steps": [5, 6],
+    "deeper_and_nan_pair": [7, 8],
+}
+
+
+@pytest.mark.parametrize("case", sorted(PROBE_CASES))
+def test_dense_probe_edges(case, syn):
+    parts = []
+    for node in PROBE_CASES[case]:
+        ks = _leaf_keys(syn, node)
+        if len(ks) > 4096:                 # sample the wide leaves
+            pick = np.random.default_rng(node).integers(0, len(ks), 1500)
+            ks = np.sort(np.concatenate([ks[pick], ks[:40], ks[-40:],
+                                         ks[65530:65545]]))
+        parts.append(_around(ks[~np.isnan(ks)]))
+    q = np.concatenate(parts + [np.asarray(
+        [np.inf, -np.inf, np.nan, 3e9, -3e9, 0.0, -0.0, 7.5, 100.0,
+         6.25, 6.3, 6.75], np.float32)])
+    got = port_pair(syn, q)
+    assert_pairs_equal(syn, q, got, ref_pair(syn, q))
+    assert got[1].any() and not got[1].all()
+
+
+def test_dense_probe_edges_cover_the_cuts(syn):
+    """The wide leaves do cut: a key past 2^16 slots from the prediction is
+    not found, by the reference and the port alike."""
+    ks = _leaf_keys(syn, 5)
+    q = ks[[10, 65536, 70000, BIG - 1]]
+    got = port_pair(syn, q)
+    assert_pairs_equal(syn, q, got, ref_pair(syn, q))
+    assert got[1].tolist() == [True, True, False, False]
+
+
+@pytest.mark.parametrize("dist", ["logn", "wikits"])
+def test_dense_leaf_misses_between_keys(dist, cached):
+    """Midpoints between the keys of every dense leaf, and the floats just
+    outside each leaf's key range."""
+    b = cached(dist, 20000)
+    f = b["f"]
+    parts = []
+    for n in np.nonzero(f.dense)[0][:400]:
+        ks = np.asarray(f.key[f.base[n]: f.base[n] + f.fo[n]], np.float32)
+        parts.append(_around(ks[np.asarray(
+            f.tag[f.base[n]: f.base[n] + f.fo[n]]) == TAG_PAIR]))
+    q = np.concatenate(parts)
+    got = port_pair(b, q)
+    assert_pairs_equal(b, q, got, ref_pair(b, q))
+
+
+@pytest.mark.parametrize("source", ["logn", "fb", "synthetic"])
+def test_max_depth_below_snapshot(source, cached, syn):
+    """One trip short: lanes standing on a dense leaf are probed, the rest
+    miss — as the reference's `search_batch` with the same max_depth."""
+    if source == "synthetic":
+        b = syn
+        q = np.concatenate([_around(_leaf_keys(syn, n)) for n in (1, 2, 8)]
+                           + [np.asarray([6.0, 6.5], np.float32)])
+    else:
+        b = cached(source, 20000)
+        q = b["keys32"][np.random.default_rng(26).integers(
+            0, len(b["keys32"]), 4096)]
+    md = int(b["jarr"]["max_depth"]) - 1
+    got = port_pair(b, q, max_depth=md)
+    want = J_search.search_batch(J_ops._as_search_idx(b["jarr"]),
+                                 jnp.asarray(q), max_depth=md)
+    assert_pairs_equal(b, q, got, [np.asarray(x) for x in want])
+    assert got[1].any()
+    if source == "synthetic":   # node 8's keys: probed on exit; mids miss
+        assert got[1][:len(_leaf_keys(syn, 1))].all() and not got[1].all()
+
+
+@pytest.mark.parametrize("source", ["logn", "synthetic"])
+def test_packed_records_match_columns(source, cached, syn):
+    """`pack_tables`' records hold the columns field by field: f32 model
+    bits, exact int32 base and fo with the dense flag in fo's sign, and per
+    slot the key bits (NaN sentinels for non-PAIR tags) and the payload."""
+    b = syn if source == "synthetic" else cached(source, 2000)
+    j = {k: np.asarray(v) for k, v in b["jarr"].items()}
+    t = b["tarr"]
+    nr = t["node_rec"].numpy()
+    sr = t["slot_rec"].numpy()
+    assert nr.dtype == np.int32 and nr.shape == (len(j["a"]), 4)
+    assert sr.dtype == np.int32 and sr.shape == (len(j["tag"]), 2)
+    np.testing.assert_array_equal(nr[:, 0], j["a"].view(np.int32))
+    np.testing.assert_array_equal(nr[:, 1], j["b"].view(np.int32))
+    np.testing.assert_array_equal(nr[:, 2], j["base"])
+    np.testing.assert_array_equal(np.abs(nr[:, 3]), j["fo"])
+    np.testing.assert_array_equal(nr[:, 3] < 0, j["dense"] > 0)
+    pair = (j["tag"] == TAG_PAIR) & ~np.isnan(j["key"])
+    np.testing.assert_array_equal(sr[pair, 0], j["key"][pair].view(np.int32))
+    assert (sr[j["tag"] == TAG_CHILD, 0] == T_ref.CHILD_KEY_BITS).all()
+    assert (sr[~pair & (j["tag"] != TAG_CHILD), 0]
+            == T_ref.EMPTY_KEY_BITS).all()
+    np.testing.assert_array_equal(sr[:, 1], j["val"])
+    np.testing.assert_array_equal(t["key"].numpy().view(np.int32),
+                                  j["key"].view(np.int32))
+    assert t["root"] == int(j["root"][0])
+    assert t["max_depth"] == int(j["max_depth"])
+    cols = T_ref.unpack_tables(t["node_rec"], t["slot_rec"], t["key"])
+    tag = np.where(pair | (j["tag"] != TAG_PAIR), j["tag"], TAG_EMPTY)
+    np.testing.assert_array_equal(cols["tag"].numpy(), tag)
+    np.testing.assert_array_equal(cols["fo"].numpy(), j["fo"])
+    np.testing.assert_array_equal(cols["dense"].numpy(), j["dense"])
