@@ -5,28 +5,40 @@
 
 Phases (any failure exits nonzero; nothing falls back to the CPU):
   1. card and build: prints the card's name and power limit, builds the
-     CUDA lookup kernel from `src/repro_torch/kernels/csrc/` with nvcc and
-     prints ptxas's register and shared-memory report;
-  2. kernel against its plain version: at 20k keys and at the main index,
-     the CUDA (val, found) must equal the plain PyTorch version's bit for
-     bit on hits, midpoint misses, +inf and NaN lanes and queries above
-     the key range, a ragged batch of 777, a table with dense leaves, and
-     the 2^20-lane batch that phase 4 times;
-  3. main path: `LearnedIndex.build` on `--keys` logn keys (f32, unique)
-     with engine="pallas" on CUDA, lookups in 2^20-query batches, 4096
-     range queries, a few thousand upserts and deletes, flush, lookups
-     again and `items()` — each checked against a numpy truth; the
-     kernel must have launched, and the pair-table recheck must have
-     turned no kernel miss into a hit;
-  4. numbers: kernel launches during the main path; on one 2^20-query
-     batch the share of lanes that end at a dense leaf, the L2 sectors the
-     walk requests under the column layout and under the packed records,
-     kernel ms (warm and cold L2), plain version ms, library ms
-     (`torch.searchsorted` over the pair table), whole lookup ms with its
+     CUDA lookup kernel from `src/repro_torch/kernels/csrc/` with nvcc
+     (one library, both instances: f32/i32 and f64/i64) and prints
+     ptxas's register and shared-memory report for both;
+  2. each instance against its plain version, bit for bit on hits,
+     midpoint misses, +inf and NaN lanes and queries above the key range,
+     a ragged batch of 777, and the 2^20-lane batch that the numbers
+     time: the f32 instance at 20k keys (a table with dense leaves) and at
+     the `pallas` main index; the f64 instance, with an overlay of upserts
+     and tombstones resolved in the same launch, at 20k logn keys (no
+     dense leaf), at a 20k DILI-LO build (every leaf dense) and at the
+     local main index;
+  3. the `pallas` main path: `LearnedIndex.build` on `--keys` logn keys
+     (f32, unique) with engine="pallas" on CUDA, lookups in
+     2^20-query batches, 4096 range queries, a few thousand upserts and
+     deletes, flush, lookups again and `items()` — each checked against a
+     numpy truth; the f32 kernel must have launched, and the pair-table
+     recheck must have turned no kernel miss into a hit;
+  4. the local main path, with the defaults users get
+     (`IndexConfig(telemetry=True)`): `LearnedIndex.build` on `--keys`
+     logn keys in f64, lookups in 2^20-query batches, 4096 range queries,
+     writes in batches of 1000 (new keys, overwrites, deletes) under the
+     default merge policy, which must merge on its own at least once,
+     then flush, lookups, ranges, `items()` and one more write batch,
+     each held against a numpy truth; the f64 kernel must have launched;
+  5. numbers, per instance: launches during its main path; on one
+     2^20-query batch the share of lanes that end at a dense leaf, the L2
+     sectors the walk requests under the column layout and under the
+     packed records, kernel ms (warm and cold L2), plain version ms,
+     library ms (`torch.searchsorted` over the pair table, and at f64
+     `resolve_overlay`'s over the overlay), whole lookup ms with its
      device breakdown, and the kernel's bound from the distinct node
-     records and key and val words the batch reads (a torch replay of the
-     kernel, held to the kernel); table bytes, build, flatten and flush
-     seconds.
+     records, key and val words and overlay words the batch reads (a
+     torch replay of the kernel, held to the kernel); table bytes, build,
+     flatten, merge and flush seconds.
 The last two lines are the kernels JSON object and the `{"ok": true, ...}`
 result.  Needs `torch` with CUDA, `nvcc`, and `nvidia-smi`.
 """
@@ -46,6 +58,7 @@ ROOT = Path(__file__).resolve().parent
 BATCH = 1 << 20
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM data sheet, non-tensor f32
+F64_FLOPS = 34e12                # H100 SXM data sheet, non-tensor f64
 
 
 def card_line() -> str:
@@ -56,40 +69,56 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def pair(arrs, q, plain: bool = False):
-    """(val, found) of the kernel, or of its plain version."""
-    from repro_torch.kernels.dili_search import dili_search
-    from repro_torch.kernels.ref import dili_search_ref
+def is_f64(arrs) -> bool:
+    import torch
+    return arrs["key"].dtype == torch.float64
+
+
+def pair(arrs, q, plain: bool = False, ov=None):
+    """(val, found) of the kernel instance for these tables (f32, or f64
+    with the overlay `ov` resolved in the same launch), or of its plain
+    version."""
+    from repro_torch.kernels.dili_search import dili_search, dili_search_f64
+    from repro_torch.kernels.ref import (dili_search_ref,
+                                         search_with_overlay_ref)
     recs = (arrs["node_rec"], arrs["slot_rec"], arrs["key"], q)
+    if is_f64(arrs):
+        if plain:
+            return search_with_overlay_ref(*recs, arrs["root"],
+                                           arrs["max_depth"], ov)
+        return dili_search_f64(*recs, root=arrs["root"],
+                               max_depth=arrs["max_depth"], ov=ov)
     if plain:
         return dili_search_ref(*recs, arrs["root"], arrs["max_depth"])
     return dili_search(*recs, root=arrs["root"], max_depth=arrs["max_depth"])
 
 
-def lane_sets(keys32: np.ndarray, rng, device) -> dict:
+def lane_sets(keys: np.ndarray, rng, device, dtype=np.float32) -> dict:
+    """Hits, midpoint misses, +inf / NaN / above-range lanes and a ragged
+    777, as `dtype` queries on `device`."""
     import torch
-    mids = ((keys32[:-1].astype(np.float64) + keys32[1:]) / 2).astype(
-        np.float32)
-    hits = keys32[rng.integers(0, len(keys32), min(BATCH, len(keys32)))]
+    keys = np.asarray(keys, dtype)
+    mids = ((keys[:-1].astype(np.float64) + keys[1:]) / 2).astype(dtype)
+    hits = keys[rng.integers(0, len(keys), min(BATCH, len(keys)))]
     above = np.concatenate([np.full(2048, np.inf),
-                            [3e9, 1e30, keys32[-1] * 2.0, keys32[-1] + 1.0,
-                             np.finfo(np.float32).max, np.nan]])
+                            [3e9, 1e30, keys[-1] * 2.0, keys[-1] + 1.0,
+                             np.finfo(dtype).max, np.nan]])
     sets = dict(hits=hits,
                 misses=mids[rng.integers(0, len(mids),
                                          min(BATCH, len(mids)))],
-                pad_and_above=above, ragged_777=keys32[:777])
-    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(
+                pad_and_above=above, ragged_777=keys[:777])
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype)).to(
         device) for k, v in sets.items()}
 
 
-def kernel_vs_plain(arrs, sets: dict, label: str) -> float:
+def kernel_vs_plain(arrs, sets: dict, label: str, ov=None) -> float:
     """Bit equality of the kernel and its plain version on every lane set;
     returns the max |difference| seen (0.0 when equal)."""
     import torch
     worst = 0.0
     for name, q in sets.items():
-        want = pair(arrs, q, plain=True)
-        got = pair(arrs, q)
+        want = pair(arrs, q, plain=True, ov=ov)
+        got = pair(arrs, q, ov=ov)
         for g, w, what in zip(got, want, ("val", "found")):
             diff = (g.long() - w.long()).abs().max().item() if g.numel() else 0
             worst = max(worst, float(diff))
@@ -102,28 +131,34 @@ def kernel_vs_plain(arrs, sets: dict, label: str) -> float:
     return worst
 
 
-def walk_reads(arrs, q) -> dict:
-    """Replay the kernel (csrc/dili_search.cu) with torch ops on q's device:
-    the walk, then the dense probe of every lane that ends at a dense leaf.
-    Record each load the kernel makes (which lanes, which row) and what
-    the function needs of the kernel's own tables: the 16-byte record of
-    each node visited (its dense flag is fo's sign); of each slot reached,
-    the key word, which also carries the tag, and `val` of a CHILD or of a
-    PAIR equal to the query; the key words the probe compares.  A slot's
-    key is one word whether the slot record or the key column gives it,
-    so `key_rows` counts it once.  Returns the replay's (val, found), the
-    distinct node records and key and val words, the levels and probes
-    that predict a slot, the lanes that end at a dense leaf, and the L2
-    sectors requested under both layouts (`sectors`)."""
+def walk_reads(arrs, q, ov=None) -> dict:
+    """Replay the kernel (csrc/dili_search.cu) with torch ops on q's device,
+    for either instance (the widths come from the tables): the walk, the
+    dense probe of every lane that ends at a dense leaf, and with `ov` the
+    overlay epilogue's bisection.  Record each load the kernel makes
+    (which lanes, which row) and what the function needs of the kernel's
+    own tables: the fields of each node visited (a, b, base and fo, whose
+    sign is the dense flag: 16 bytes at f32, 24 at f64, where the record
+    is padded to 32); of each slot reached, the key word,
+    which also carries the tag, and `val` of a CHILD or of a PAIR equal to
+    the query; the key words the probe compares; the overlay key words the
+    bisection compares, and the tomb byte and val word of each overlay
+    entry that equals a query.  A slot's key is one word whether the slot
+    record or the key column gives it, so `key_rows` counts it once.
+    Returns the replay's (val, found), the distinct rows of each kind, the
+    levels and probes that predict a slot, the lanes that end at a dense
+    leaf, and the L2 sectors the walk requests under both layouts
+    (`sectors`)."""
     import torch
     from repro_torch.core.flat import TAG_CHILD, TAG_PAIR
     from repro_torch.core.search import predict_slot
     from repro_torch.kernels.ref import unpack_tables
     c = unpack_tables(arrs["node_rec"], arrs["slot_rec"], arrs["key"])
     nq, dev = q.numel(), q.device
-    out = torch.full((nq,), -1, dtype=torch.int32, device=dev)
+    out = torch.full((nq,), -1, dtype=c["val"].dtype, device=dev)
     hit = torch.zeros(nq, dtype=torch.bool, device=dev)
-    rows = {k: [] for k in ("node", "key", "val")}
+    rows = {k: [] for k in ("node", "key", "val", "ov_key", "ov_tomb",
+                            "ov_val")}
     loads = []           # (table, lanes, rows[, key read, val read])
 
     def node_load(lanes, node):
@@ -198,22 +233,48 @@ def walk_reads(arrs, q) -> dict:
         hi = torch.where(go & ~below, mid, hi)
     slot_load(L, (base + torch.minimum(lo, m1)).long(), qq)
 
+    if ov is not None:                # the overlay epilogue's bisection
+        ok, n = ov["keys"], ov["keys"].numel()
+        lo = torch.zeros(nq, dtype=torch.long, device=dev)
+        hi = torch.full((nq,), n, dtype=torch.long, device=dev)
+        while bool((lo < hi).any()):
+            go = lo < hi
+            mid = (lo + hi) // 2
+            rows["ov_key"].append(mid[go])
+            below = ok[torch.clamp(mid, max=n - 1)] < q
+            lo = torch.where(go & below, mid + 1, lo)
+            hi = torch.where(go & ~below, mid, hi)
+        i = torch.clamp(lo, max=n - 1)
+        rows["ov_key"].append(i)
+        eq = ok[i] == q
+        dead = eq & (ov["tomb"][i] > 0)
+        live = eq & ~dead
+        rows["ov_tomb"].append(i[eq])
+        rows["ov_val"].append(i[live])
+        out = torch.where(live, ov["vals"][i], out)
+        hit = live | (hit & ~dead)
+
     return dict(pair=(out, hit),
                 rows={k: int(torch.unique(torch.cat(v)).numel()) if v else 0
                       for k, v in rows.items()},
                 predicts=levels + L.numel(), dense_lanes=L.numel(),
-                sectors=l2_sectors(loads))
+                sectors=l2_sectors(loads, arrs))
 
 
-def l2_sectors(loads) -> dict:
+def l2_sectors(loads, arrs) -> dict:
     """L2 sectors the replayed loads request per layout: for each load,
     the distinct 32-byte sectors among the lanes of each warp (32
-    consecutive lanes), summed.  `columns` reads one 4-byte column per
-    field (a node: a, b, base, fo, dense; a slot: tag, then key of a PAIR
-    and val of a CHILD or hit); `records` reads a node as one 16-byte
-    record and a slot as one 8-byte record (the kernel's layout).  Both
-    read the dense probe's keys from the f32 key column."""
+    consecutive lanes), summed.  `columns` reads one column per field (a
+    node: a, b of the key's width, then base, fo, dense of 4 bytes; a
+    slot: a 4-byte tag, then the key of a PAIR and the val of a CHILD or
+    hit, of the key's width); `records` reads a node as one record and a
+    slot as one record (the kernel's layout: 16 and 8 bytes at f32, 32
+    and 16 at f64).  Both read the dense probe's keys from the key
+    column."""
     import torch
+    w = arrs["key"].element_size()
+    node_b = arrs["node_rec"].shape[1] * arrs["node_rec"].element_size()
+    slot_b = arrs["slot_rec"].shape[1] * arrs["slot_rec"].element_size()
 
     def count(lanes, rows, row_bytes):
         if lanes.numel() == 0:
@@ -226,18 +287,37 @@ def l2_sectors(loads) -> dict:
     for ld in loads:
         table, lanes, rows = ld[:3]
         if table == "node":
-            cols += 5 * count(lanes, rows, 4)
-            recs += count(lanes, rows, 16)
+            cols += 2 * count(lanes, rows, w) + 3 * count(lanes, rows, 4)
+            recs += count(lanes, rows, node_b)
         elif table == "slot":
             key_read, val_read = ld[3], ld[4]
             cols += (count(lanes, rows, 4)
-                     + count(lanes[key_read], rows[key_read], 4)
-                     + count(lanes[val_read], rows[val_read], 4))
-            recs += count(lanes, rows, 8)
+                     + count(lanes[key_read], rows[key_read], w)
+                     + count(lanes[val_read], rows[val_read], w))
+            recs += count(lanes, rows, slot_b)
         else:
-            cols += count(lanes, rows, 4)
-            recs += count(lanes, rows, 4)
+            cols += count(lanes, rows, w)
+            recs += count(lanes, rows, w)
     return dict(columns=cols, records=recs)
+
+
+def bound_of(rp: dict, arrs, nq: int) -> tuple:
+    """(bound ms, bound_by, bytes moved, table bytes read) of one batch:
+    the queries in, (val, found) out, and what the replay `rp` says this
+    batch needs of the tables and the overlay, each byte once (a node's
+    fields, not its record's padding); against the operations, a
+    multiply and an add per slot prediction."""
+    w = arrs["key"].element_size()
+    node_b = 2 * w + 8                # a, b, and the 4-byte base and fo
+    r = rp["rows"]
+    table_read = (node_b * r["node"] + w * (r["key"] + r["val"])
+                  + 8 * (r["ov_key"] + r["ov_val"]) + r["ov_tomb"])
+    moved = nq * (w + w + 1) + table_read
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * rp["predicts"] / (F64_FLOPS if w == 8 else F32_FLOPS) * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", moved,
+            table_read)
 
 
 def truth_lookup(tk: np.ndarray, tv: np.ndarray, q: np.ndarray):
@@ -246,12 +326,14 @@ def truth_lookup(tk: np.ndarray, tv: np.ndarray, q: np.ndarray):
     return np.where(hit, tv[i], -1), hit
 
 
-def check_lookup(ix, tk, tv, q, label):
+def check_lookup(ix, tk, tv, q, label, f32: bool = True):
+    """Lookup through the facade, held against the truth (at f32, on the
+    queries as the `pallas` engine casts them); returns its seconds."""
     t0 = time.perf_counter()
     v, f = ix.lookup(q)
     dt = time.perf_counter() - t0
     want_v, want_f = truth_lookup(tk, tv, q.astype(np.float32).astype(
-        np.float64))
+        np.float64) if f32 else q)
     if not np.array_equal(f, want_f) or not np.array_equal(v[f], want_v[f]):
         raise AssertionError(f"{label}: lookup disagrees with the truth on "
                              f"{int((f != want_f).sum())} found flags")
@@ -348,6 +430,125 @@ def main_path(n_keys: int, seed: int, device) -> tuple:
     return ix, tk, tv, info
 
 
+def local_path(n_keys: int, seed: int, device) -> tuple:
+    """The local engine with the defaults users get: build on f64 logn
+    keys, read, write in batches of 1000 under the default merge policy
+    (which must merge on its own), flush, read and list, and leave one
+    more round of writes pending; every answer held against a numpy
+    truth after every write batch.  Returns (index, truth keys, truth
+    vals, info)."""
+    from repro_torch.api import IndexConfig, LearnedIndex
+    from repro_torch.data.datasets import generate
+    rng = np.random.default_rng(seed + 2)
+    tk = generate("logn", n_keys, seed)
+    tv = np.arange(len(tk), dtype=np.int64)
+    t0 = time.perf_counter()
+    ix = LearnedIndex.build(tk, tv, config=IndexConfig(telemetry=True),
+                            device=device)
+    total_s = time.perf_counter() - t0
+    if ix.engine != "local":
+        raise AssertionError(f"IndexConfig() built {ix.engine!r}")
+    spans = ix.metrics()["spans"]
+    flatten_s = spans["merge.flatten"]["ms_max"] / 1e3
+    upload_s = spans["merge.publish"]["ms_max"] / 1e3
+    st = ix.stats()
+    info = dict(n_keys=len(tk), build_s=total_s - flatten_s - upload_s,
+                flatten_s=flatten_s, upload_s=upload_s,
+                device_bytes=st["device_bytes"], max_depth=st["max_depth"])
+    print(f"local: built {len(tk)} f64 keys in {total_s:.3f} s (bulk load "
+          f"{info['build_s']:.3f} s, flatten {flatten_s:.3f} s, upload "
+          f"{upload_s:.3f} s); DeviceSnapshot (not uploaded) "
+          f"{st['device_bytes']} B, kernel tables "
+          f"{ix.kernel_stats['table_bytes']} B, max_depth {st['max_depth']}",
+          flush=True)
+    lookup_s = [check_lookup(ix, tk, tv, q, "local fresh lookup", f32=False)
+                for q in lookup_batches(tk, rng, 2)]
+    check_range(ix, tk, tv, rng, label="local fresh range")
+
+    mids = (tk[:-1] + tk[1:]) / 2
+    new = np.setdiff1d(mids[rng.integers(0, len(mids), 3200)], tk)
+    new = rng.permutation(new)[:3000]
+    pick = rng.permutation(len(tk))[:4000]
+    over, dead = tk[pick[:1500]], tk[pick[1500:]]
+    n_up = 0
+
+    def write(op, keys):
+        nonlocal tk, tv, n_up
+        if op == "upsert":
+            vals = np.arange(len(keys), dtype=np.int64) + 2 ** 40 + n_up
+            n_up += len(keys)
+            ix.upsert(keys, vals)
+            nk, (nv, nt) = _apply(tk, tv, keys, vals, keys[:0])
+        else:
+            ix.delete(keys)
+            nk, (nv, nt) = _apply(tk, tv, keys[:0], tv[:0], keys)
+        tk, tv = nk[nt == 0], nv[nt == 0]
+        check_lookup(ix, tk, tv, np.concatenate([keys, tk[:4096]]),
+                     f"local after {op}", f32=False)
+        check_lookup(ix, tk, tv, next(lookup_batches(tk, rng, 1)),
+                     f"local batch after {op}", f32=False)
+        check_range(ix, tk, tv, rng, label=f"local range after {op}")
+        for k in keys[:8]:
+            i = np.searchsorted(tk, k)
+            want = int(tv[i]) if i < len(tk) and tk[i] == k else None
+            if ix.get(k) != want:
+                raise AssertionError(f"local get({k!r}) after {op}")
+        st = ix.stats()
+        print(f"local: {op} of {len(keys)} keys held to the truth; epoch "
+              f"{st['epoch']}, {st['pending_writes']} pending, merges "
+              f"{st['merge_reasons']}", flush=True)
+
+    for op, keys in (("upsert", new[:1000]), ("upsert", over[:1000]),
+                     ("delete", dead[:1000]), ("upsert", new[1000:2000])):
+        write(op, keys)
+    reasons = ix.stats()["merge_reasons"]
+    auto = sum(n for r, n in reasons.items() if r != "flush")
+    if auto < 1:
+        raise AssertionError(f"the default policy merged no time on its "
+                             f"own: {reasons}")
+    t0 = time.perf_counter()
+    ix.flush()
+    info["flush_s"] = time.perf_counter() - t0
+    lookup_s += [check_lookup(ix, tk, tv, q, "local post-flush lookup",
+                              f32=False) for q in lookup_batches(tk, rng, 2)]
+    check_range(ix, tk, tv, rng, label="local post-flush range")
+    ik, iv = ix.items()
+    if not (np.array_equal(ik, tk) and np.array_equal(iv, tv)):
+        raise AssertionError("local items() disagrees with the truth")
+    print(f"local: flush {info['flush_s']:.3f} s; lookups, ranges and "
+          f"items() equal to the truth ({len(tk)} live keys)", flush=True)
+    # one more round, left pending, so that the timed lookups resolve a
+    # real overlay (upserts, overwrites and tombstones)
+    write("upsert", np.concatenate([new[2000:2500], over[1000:1500]]))
+    write("delete", dead[1000:2000])
+    st = ix.stats()
+    info.update(merge_reasons=st["merge_reasons"],
+                merges=ix.maint_timings(), pending=st["pending_writes"],
+                lookup_ms=[s * 1e3 for s in lookup_s])
+    print(f"local: merge_reasons {st['merge_reasons']}; per merge "
+          f"(fold + flatten, upload) s "
+          f"{[(round(m['merge_s'], 3), round(m['publish_s'], 3)) for m in info['merges']]}; "
+          f"{st['pending_writes']} writes left pending", flush=True)
+    return ix, tk, tv, info
+
+
+def make_overlay(keys: np.ndarray, rng, device, n_up: int = 1000,
+                 n_dead: int = 600):
+    """An overlay mirror of upserts (new keys between neighbours, and
+    overwrites) and tombstones, some re-upserted, over `keys`."""
+    from repro_torch.online.overlay import (TombstoneOverlay,
+                                            overlay_device_arrays)
+    mids = (keys[:-1] + keys[1:]) / 2
+    up = np.concatenate([mids[rng.integers(0, len(mids), n_up // 2)],
+                         keys[rng.integers(0, len(keys), n_up // 2)]])
+    dead = keys[rng.integers(0, len(keys), n_dead)]
+    ov = (TombstoneOverlay.empty(64)
+          .upsert_batch(up, np.arange(len(up)) + 2 ** 40)
+          .delete_batch(dead)
+          .upsert_batch(dead[: n_dead // 10], np.arange(n_dead // 10)))
+    return overlay_device_arrays(ov, device=device)
+
+
 def _apply(tk, tv, up_k, up_v, dead):
     from repro_torch.core.flat import merge_sorted_runs
     k = np.concatenate([up_k, dead])
@@ -396,26 +597,31 @@ def cold_l2_ms(fn, device, reps: int) -> float:
 def device_breakdown(fn, reps: int = 3) -> None:
     """Print the device time of `reps` calls of `fn` by kernel / copy name
     (torch.profiler's CUDA events) and the device's busy share of the
-    wall time."""
+    wall time.  A profiling session that records no device event (seen
+    once for a second session in one process) is run again, at most
+    three times in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+    for attempt in range(3):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us())
-    if not by_name:
-        print("where the time goes: not measured (the profiler saw no "
-              "device events)", flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us())
+        if by_name:
+            break
+    else:
+        print("where the time goes: not measured (three profiler sessions "
+              "saw no device events)", flush=True)
         return
     busy = sum(by_name.values())
     print(f"where the time goes, per lookup call: wall {wall_us / reps:.1f} "
@@ -426,9 +632,42 @@ def device_breakdown(fn, reps: int = 3) -> None:
         print(f"  {us / reps:10.1f} us  {name[:90]}", flush=True)
 
 
+def time_kernel(arrs, q, dev, ov=None) -> dict:
+    """Warm ms (8 rounds of 25 launches queued back to back), cold-L2 ms
+    (median of 20 single launches) and plain-version ms (5 calls) of one
+    batch."""
+    for _ in range(3):
+        pair(arrs, q, ov=ov)
+    rounds = [cuda_ms(lambda: pair(arrs, q, ov=ov), 25) for _ in range(8)]
+    print(f"kernel ms per launch over 8 rounds of 25: "
+          f"{[round(x, 5) for x in rounds]}", flush=True)
+    return dict(ms=float(np.median(rounds)),
+                cold_ms=cold_l2_ms(lambda: pair(arrs, q, ov=ov), dev, 20),
+                plain_ms=cuda_ms(lambda: pair(arrs, q, plain=True, ov=ov),
+                                 5))
+
+
+def replay_checked(arrs, q, ov=None, label="timed batch") -> dict:
+    """`walk_reads`, held to the kernel: the replay must be the kernel, so
+    its loads and words are the kernel's."""
+    import torch
+    rp = walk_reads(arrs, q, ov)
+    for r, k, what in zip(rp["pair"], pair(arrs, q, ov=ov), ("val", "found")):
+        if not torch.equal(r, k):
+            raise AssertionError(f"{label}: walk replay {what} differs from "
+                                 f"the kernel")
+    print(f"{label}: lanes ending at a dense leaf {rp['dense_lanes']} of "
+          f"{q.numel()} ({rp['dense_lanes'] / q.numel():.4f}); L2 sectors "
+          f"requested (32 B, distinct per warp and load): column layout "
+          f"{rp['sectors']['columns']}, packed records "
+          f"{rp['sectors']['records']}", flush=True)
+    return rp
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--keys", type=int, default=1_000_000)
+    ap.add_argument("--keys", type=int, default=1_000_000,
+                    help="keys of each main path")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -438,9 +677,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.dili import bulk_load
     from repro_torch.core.flat import flatten
+    from repro_torch.core import search as S
     from repro_torch.kernels import ops as K
-    from repro_torch.kernels.dili_search import kernel
+    from repro_torch.kernels.dili_search import kernel, kernel_f64
     from repro_torch.data.datasets import generate
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
@@ -451,68 +692,71 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     kernel.build()
-    print(f"build: dili_search.cu built and loaded in {kernel.build_s:.3f} s",
-          flush=True)
+    print(f"build: dili_search.cu (f32/i32 and f64/i64 instances) built and "
+          f"loaded in {kernel.build_s:.3f} s", flush=True)
     for line in kernel.ptxas_report.splitlines():
         print(f"  {line.strip()}", flush=True)
 
-    # -- 2. kernel against its plain version, 20k keys ------------------------
+    # -- 2. each instance against its plain version, 20k keys -----------------
     d, k20 = K.build_f32_index(generate("logn", 20_000, args.seed))
     f20 = flatten(d)
     arrs20 = K.kernel_arrays(f20, device=dev)
-    print(f"kernel vs plain at {len(k20)} keys ({int(f20.dense.sum())} dense "
-          f"leaves of {f20.n_nodes} nodes):", flush=True)
+    print(f"f32 kernel vs plain at {len(k20)} keys ({int(f20.dense.sum())} "
+          f"dense leaves of {f20.n_nodes} nodes):", flush=True)
     if not f20.dense.any():
         raise AssertionError("the 20k logn table has no dense leaf")
     max_err = kernel_vs_plain(arrs20, lane_sets(k20, rng, dev), "20k")
+    k64 = generate("logn", 20_000, args.seed)
+    max_err64 = 0.0
+    for label, lo_opt in (("20k-f64", True), ("20k-f64-dili-lo", False)):
+        f = flatten(bulk_load(k64, local_optimized=lo_opt))
+        print(f"f64 kernel vs plain at {len(k64)} keys, "
+              f"{'standard' if lo_opt else 'DILI-LO'} build "
+              f"({int(f.dense.sum())} dense leaves of {f.n_nodes} nodes), "
+              f"with an overlay:", flush=True)
+        if f.dense.any() == lo_opt:
+            raise AssertionError(f"the {label} build has "
+                                 f"{int(f.dense.sum())} dense leaves")
+        a64, sets = (K.kernel_arrays(f, device=dev, dtype=torch.float64),
+                     lane_sets(k64, rng, dev, np.float64))
+        ov20 = make_overlay(k64, rng, dev)
+        max_err64 = max(max_err64, kernel_vs_plain(a64, sets, label,
+                                                   ov=ov20))
+        for name in ("hits", "misses"):
+            replay_checked(a64, sets[name], ov20, f"  {label}/{name}")
 
-    # -- 3. main path, counted ------------------------------------------------
-    kernel.launches = 0
+    # -- 3. the pallas main path, counted -------------------------------------
+    kernel.launches = kernel_f64.launches = 0
     ix, tk, tv, info = main_path(args.keys, args.seed, dev)
-    launches = kernel.launches
+    launches, launches_f64 = kernel.launches, kernel_f64.launches
     ks = ix.kernel_stats
     if launches == 0:
-        raise AssertionError("the main path launched the kernel no time")
+        raise AssertionError("the pallas path launched the f32 kernel no "
+                             "time")
     if ks["recheck_changed"]:
         raise AssertionError(f"the pair-table recheck changed "
                              f"{ks['recheck_changed']} lanes: the kernel "
                              f"missed keys that are in the table")
-    print(f"main: kernel launches {launches} over {ks['lookups']} lookup "
-          f"calls ({ks['lanes']} lanes); pair-table recheck changed "
-          f"{ks['recheck_changed']} lanes", flush=True)
+    print(f"main: f32 kernel launches {launches} (f64: {launches_f64}) over "
+          f"{ks['lookups']} lookup calls ({ks['lanes']} lanes); pair-table "
+          f"recheck changed {ks['recheck_changed']} lanes", flush=True)
 
-    # -- 2b. kernel against its plain version at the main index ---------------
+    # -- 3b. f32 kernel against its plain version at the main index -----------
     flat = flatten(ix.host)
     arrs = K.kernel_arrays(flat, device=dev)
-    print(f"kernel vs plain at the main index ({len(tk)} keys, "
+    print(f"f32 kernel vs plain at the main index ({len(tk)} keys, "
           f"{int(flat.dense.sum())} dense leaves of {flat.n_nodes} nodes):",
           flush=True)
     keys32 = tk.astype(np.float32)
     max_err = max(max_err, kernel_vs_plain(arrs, lane_sets(keys32, rng, dev),
                                            "main"))
 
-    # -- 4. times and bound at 2^20-query batches -----------------------------
+    # -- 5a. f32 numbers at 2^20-query batches --------------------------------
     q_np = next(lookup_batches(tk, rng, 1)).astype(np.float32)
     q = torch.from_numpy(q_np).to(dev)
     max_err = max(max_err, kernel_vs_plain(arrs, {"timed_2^20": q}, "main"))
-    # the replay must be the kernel, so its loads and words are the kernel's
-    rp = walk_reads(arrs, q)
-    for r, k, what in zip(rp["pair"], pair(arrs, q), ("val", "found")):
-        if not torch.equal(r, k):
-            raise AssertionError(f"walk replay {what} differs from the kernel")
-    print(f"timed batch: lanes ending at a dense leaf {rp['dense_lanes']} of "
-          f"{q.numel()} ({rp['dense_lanes'] / q.numel():.4f}); L2 sectors "
-          f"requested per 2^20 batch (32 B, distinct per warp and load): "
-          f"column layout {rp['sectors']['columns']}, packed records "
-          f"{rp['sectors']['records']}", flush=True)
-    for _ in range(3):
-        pair(arrs, q)
-    rounds = [cuda_ms(lambda: pair(arrs, q), 25) for _ in range(8)]
-    ms = float(np.median(rounds))
-    print(f"kernel ms per launch over 8 rounds of 25: "
-          f"{[round(x, 5) for x in rounds]}", flush=True)
-    cold_ms = cold_l2_ms(lambda: pair(arrs, q), dev, 20)
-    plain_ms = cuda_ms(lambda: pair(arrs, q, plain=True), 5)
+    rp = replay_checked(arrs, q)
+    t32 = time_kernel(arrs, q, dev)
     pk = torch.from_numpy(flat.pair_key.astype(np.float32)).to(dev)
     pv = torch.from_numpy(flat.pair_val.astype(np.int32)).to(dev)
 
@@ -530,23 +774,15 @@ def main() -> int:
     lookup_ms = float(np.median([check_lookup(ix, tk, tv, q_np, "timed")
                                  for _ in range(5)])) * 1e3
     device_breakdown(lambda: ix.lookup(q_np))
-    # bound: the queries in, (val, found) out, and what this batch's walk
-    # and probe need of the tables, each byte once: a 16-byte record per
-    # node, a 4-byte word per key and per val
-    nrow = rp["rows"]
-    table_read = 16 * nrow["node"] + 4 * (nrow["key"] + nrow["val"])
-    moved = q.numel() * (4 + 4 + 1) + table_read
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * rp["predicts"] / F32_FLOPS * 1e3   # mul + add a prediction
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"time per 2^20-query batch on {card}: kernel {ms:.4f} ms "
-          f"({cold_ms:.4f} ms with a cold L2), plain version "
-          f"{plain_ms:.4f} ms, searchsorted over the pair table "
-          f"{library_ms:.4f} ms, whole lookup {lookup_ms:.4f} ms; bound "
-          f"{bound_ms:.4f} ms ({moved} B over HBM: {table_read} B of the "
-          f"{K.table_bytes(arrs)} B tables: distinct node records, key "
-          f"and val words {nrow}; "
-          f"{rp['predicts']} slot predictions)", flush=True)
+    bound_ms, bound_by, moved, table_read = bound_of(rp, arrs, q.numel())
+    print(f"f32 time per 2^20-query batch on {card}: kernel "
+          f"{t32['ms']:.4f} ms ({t32['cold_ms']:.4f} ms with a cold L2), "
+          f"plain version {t32['plain_ms']:.4f} ms, searchsorted over the "
+          f"pair table {library_ms:.4f} ms, whole lookup {lookup_ms:.4f} ms; "
+          f"bound {bound_ms:.4f} ms ({moved} B over HBM: {table_read} B of "
+          f"the {K.table_bytes(arrs)} B tables: distinct node records, key "
+          f"and val words {rp['rows']}; {rp['predicts']} slot predictions)",
+          flush=True)
     print(f"sizes: {info['n_keys']} keys; after the flush, tables "
           f"{K.column_bytes(arrs)} B in the column layout, "
           f"{K.table_bytes(arrs)} B packed; bulk load "
@@ -554,16 +790,92 @@ def main() -> int:
           f"flush {info['flush_s']:.3f} s; facade lookup ms per batch in the "
           f"main path {[round(x, 3) for x in info['lookup_ms']]}", flush=True)
     ix.close()
-
-    print(card, flush=True)
-    print(json.dumps({"kernels": [dict(
+    entry32 = dict(
         name="dili_search", route="cuda",
         source="src/repro_torch/kernels/csrc/dili_search.cu",
         replaces="src/repro/kernels/dili_search.py:34",
-        launches=launches, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms,
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        library_ms=library_ms)]}), flush=True)
+        launches=launches, max_abs_err=max_err, ms=t32["ms"],
+        plain_ms=t32["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=library_ms)
+    del ix, arrs, flat, pk, pv, q, rp
+    torch.cuda.empty_cache()
+
+    # -- 4. the local main path, counted --------------------------------------
+    kernel.launches = kernel_f64.launches = 0
+    ix, tk, tv, info = local_path(args.keys, args.seed, dev)
+    launches, launches_f64 = kernel.launches, kernel_f64.launches
+    if launches_f64 == 0:
+        raise AssertionError("the local path launched the f64 kernel no "
+                             "time")
+    ks = ix.kernel_stats
+    print(f"local: f64 kernel launches {launches_f64} (f32: {launches}) over "
+          f"{ks['lookups']} lookup calls ({ks['lanes']} lanes)", flush=True)
+
+    # -- 4b. f64 kernel against its plain version at the main index -----------
+    oi = ix._engine.oi
+    arrs, ov, flat = oi.store.kernel_tables, oi._overlay_arrays(), oi.store.flat
+    print(f"f64 kernel vs plain at the local main index ({len(tk)} live "
+          f"keys, {int(flat.dense.sum())} dense leaves of {flat.n_nodes} "
+          f"nodes, {ix.stats()['pending_writes']} pending writes in the "
+          f"overlay):", flush=True)
+    max_err64 = max(max_err64, kernel_vs_plain(
+        arrs, lane_sets(tk, rng, dev, np.float64), "local", ov=ov))
+
+    # -- 5b. f64 numbers at 2^20-query batches --------------------------------
+    q_np = next(lookup_batches(tk, rng, 1))
+    q = torch.from_numpy(q_np).to(dev)
+    max_err64 = max(max_err64, kernel_vs_plain(arrs, {"timed_2^20": q},
+                                               "local", ov=ov))
+    rp = replay_checked(arrs, q, ov)
+    t64 = time_kernel(arrs, q, dev, ov)
+    pk = torch.from_numpy(flat.pair_key).to(dev)
+    pv = torch.from_numpy(flat.pair_val).to(dev)
+
+    def library64():
+        i = torch.searchsorted(pk, q).clamp_(max=pk.numel() - 1)
+        return S.resolve_overlay(ov, q, pv[i], pk[i] == q)
+
+    lv, lf = library64()
+    kv, kf = pair(arrs, q, ov=ov)
+    if not (torch.equal(lf, kf) and torch.equal(lv[lf], kv[kf])):
+        raise AssertionError("searchsorted over the pair table and the "
+                             "overlay disagrees with the kernel")
+    library64_ms = cuda_ms(library64, 50)
+    ix.lookup(q_np)
+    lookup64_ms = float(np.median([
+        check_lookup(ix, tk, tv, q_np, "local timed", f32=False)
+        for _ in range(5)])) * 1e3
+    device_breakdown(lambda: ix.lookup(q_np))
+    bound64_ms, bound64_by, moved, table_read = bound_of(rp, arrs, q.numel())
+    print(f"f64 time per 2^20-query batch on {card}: kernel "
+          f"{t64['ms']:.4f} ms ({t64['cold_ms']:.4f} ms with a cold L2), "
+          f"plain version {t64['plain_ms']:.4f} ms, searchsorted over the "
+          f"pair table and the overlay {library64_ms:.4f} ms, whole "
+          f"LocalEngine lookup {lookup64_ms:.4f} ms; bound "
+          f"{bound64_ms:.4f} ms ({moved} B over HBM: {table_read} B of the "
+          f"{K.table_bytes(arrs)} B tables and the overlay: distinct rows "
+          f"{rp['rows']}; {rp['predicts']} slot predictions)", flush=True)
+    print(f"local sizes: {info['n_keys']} keys built; kernel tables "
+          f"{K.column_bytes(arrs)} B in the column layout, "
+          f"{K.table_bytes(arrs)} B packed; pair table on the device "
+          f"{sum(t.nbytes for t in oi.store.pairs.values())} B; "
+          f"DeviceSnapshot (stats' device_bytes, not uploaded) "
+          f"{ix.stats()['device_bytes']} B; bulk load {info['build_s']:.3f} "
+          f"s, flatten {info['flatten_s']:.3f} s, upload "
+          f"{info['upload_s']:.3f} s, flush {info['flush_s']:.3f} s; merges "
+          f"{info['merge_reasons']}; facade lookup ms per batch in the main "
+          f"path {[round(x, 3) for x in info['lookup_ms']]}", flush=True)
+    ix.close()
+    entry64 = dict(
+        name="dili_search_f64", route="cuda",
+        source="src/repro_torch/kernels/csrc/dili_search.cu",
+        replaces="src/repro/kernels/dili_search.py:34",
+        launches=launches_f64, max_abs_err=max_err64, ms=t64["ms"],
+        plain_ms=t64["plain_ms"], bound_ms=bound64_ms, bound_by=bound64_by,
+        library_ms=library64_ms)
+
+    print(card, flush=True)
+    print(json.dumps({"kernels": [entry32, entry64]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

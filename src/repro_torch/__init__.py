@@ -6,10 +6,13 @@ code (bulk load, flatten).  Its layout mirrors the reference's, so each
 counterpart sits at the same path:
 
     core/     host tree (copied) + batched search as torch ops
-    kernels/  the hand-written CUDA lookup kernel, its plain version, ops
-    online/   tombstone overlay, merge policy
+    kernels/  the hand-written CUDA lookup kernel (f32 and f64 instances),
+              its plain version, ops
+    online/   tombstone overlay, epoch snapshot store, merge policy,
+              OnlineIndex
     obs/      metrics, spans, recompile watchdog
-    api/      IndexConfig, DeviceSnapshot, the kernel engine, LearnedIndex
+    api/      IndexConfig, DeviceSnapshot, the local and kernel engines,
+              LearnedIndex
 
 Entry points run on CUDA unless the caller passes `device="cpu"`.
 """

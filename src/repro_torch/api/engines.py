@@ -1,13 +1,25 @@
 """Engines behind `repro_torch.api.LearnedIndex` (port of
 `repro/api/engines.py`).
 
-This slice ports one engine, `KernelEngine`, the counterpart of the
-reference's `PallasEngine`: f32 keys, lookups through the hand-written
-CUDA kernel (`kernels.ops.dili_search`, walk and dense-leaf probe in one
-launch) and the pair-table recheck, the tombstone overlay resolved over
-the kernel's result, ranges bisecting an f32 `DeviceSnapshot`.  Its
-`name` stays "pallas", so configs and `stats()` read as the reference's.
-The local and sharded engines come in later slices (see ROADMAP.md).
+Two of the reference's three engines are ported:
+
+  * `LocalEngine` (`IndexConfig()`'s default): f64 keys and int64
+    payloads over `online.OnlineIndex`'s overlay/merge lifecycle; a
+    lookup is one launch of the f64 instance of the hand-written CUDA
+    kernel (`kernels.ops.search_with_overlay`: walk, dense-leaf probe and
+    overlay resolve), in place of the reference's fused XLA
+    `search_with_overlay`; ranges bisect the epoch's f64 pair table,
+    the one part of the reference's `DeviceSnapshot` the store keeps on
+    the device.
+  * `KernelEngine`, the counterpart of the reference's `PallasEngine`:
+    f32 keys, lookups through the f32 instance of the kernel
+    (`kernels.ops.dili_search`, walk and dense-leaf probe in one launch)
+    and the pair-table recheck, the tombstone overlay resolved over the
+    kernel's result, ranges bisecting an f32 `DeviceSnapshot`.  Its
+    `name` stays "pallas", so configs and `stats()` read as the
+    reference's.
+
+The sharded engine comes in a later slice (see ROADMAP.md).
 
 Range queries are overlay-exact: the device bisects the key-sorted pair
 table with enough headroom to cover pending tombstones, then the (small,
@@ -27,7 +39,7 @@ from ..core.flat import flatten, merge_sorted_runs
 from ..device import resolve_device
 from ..kernels import ops as K
 from ..obs import Telemetry
-from ..online.merge import adjust_pressure
+from ..online.merge import OnlineIndex, adjust_pressure
 from ..online.overlay import (TombstoneOverlay, fold_overlay,
                               overlay_device_arrays)
 from .config import IndexConfig
@@ -113,6 +125,14 @@ class EngineTelemetryBase:
         return dict(engine=self.name, **self.telemetry.snapshot())
 
 
+def _reject_background(cfg: IndexConfig, engine: str) -> None:
+    if cfg.maintenance is not None and cfg.maintenance.background:
+        raise ValueError(
+            f"background maintenance requires the local engine (its "
+            f"double-buffered SnapshotStore); the {engine} engine "
+            f"supports maintenance=MaintenanceConfig(background=False)")
+
+
 def _merge_range_windows(ks, vs, cnt, lo, hi, ov_k, ov_v, ov_t,
                          max_hits: int):
     """Resolve overlay state over per-query snapshot range windows: each
@@ -190,6 +210,143 @@ def _overlay_exact_range(entries, lo, hi, max_hits: int, device_range):
 
 
 # ---------------------------------------------------------------------------
+# LocalEngine
+# ---------------------------------------------------------------------------
+
+
+class LocalEngine(EngineTelemetryBase):
+    """Single-process engine over the online-update lifecycle: writes land
+    in the tombstone overlay, a lookup is ONE launch of the f64 kernel
+    instance (its plain version on a CPU device), merges follow the
+    configured `MergePolicy` (DESIGN.md sections 8-9).  f64 keys only: a
+    float32 `dtype` waits for an <float, int64> kernel instance.
+
+    `kernel_stats` counts, since build, `lookups` (engine calls) and
+    `lanes` (queries sent to the kernel), and gives `table_bytes`, the
+    current epoch's kernel tables as uploaded — port only."""
+
+    name = "local"
+
+    def __init__(self, keys: np.ndarray, vals: np.ndarray, cfg: IndexConfig,
+                 device="cuda"):
+        if cfg.resolved_dtype != torch.float64:
+            raise NotImplementedError(
+                f"the local engine at dtype={cfg.dtype} is not ported yet "
+                f"(it needs an <float, int64> instance of the lookup "
+                f"kernel); see ROADMAP.md")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.telemetry = Telemetry(enabled=cfg.telemetry)
+        self.oi = OnlineIndex(keys, vals, policy=cfg.merge,
+                              overlay_cap=cfg.overlay_cap,
+                              dtype=cfg.resolved_dtype, pad=cfg.pad,
+                              early_exit=cfg.early_exit,
+                              maintenance=cfg.maintenance,
+                              telemetry=self.telemetry, device=self.device,
+                              **cfg.bulk_load_kw())
+
+    # -- reads --------------------------------------------------------------
+
+    def lookup(self, queries):
+        return self.oi.lookup(queries)
+
+    def range(self, lo, hi, max_hits):
+        oi = self.oi
+
+        def t(x):
+            return torch.from_numpy(np.ascontiguousarray(
+                x, np.float64)).to(self.device)
+
+        def device_range(lo_, hi_, fetch):
+            out = S.range_query_batch(oi.store.pairs, t(lo_), t(hi_),
+                                      max_hits=fetch)
+            return tuple(x.cpu().numpy() for x in out)
+
+        # pending entries captured BEFORE the snapshot is read in
+        # device_range (see OnlineIndex.pending_entries)
+        return _overlay_exact_range(oi.pending_entries(), lo, hi, max_hits,
+                                    device_range)
+
+    def get(self, key: float):
+        return self.oi.get(key)
+
+    @property
+    def snapshot(self):
+        """The current epoch's `DeviceSnapshot`, uploaded on each call
+        (pending overlay writes are NOT in it)."""
+        return self.oi.store.idx
+
+    # -- writes -------------------------------------------------------------
+
+    def upsert(self, keys, vals):
+        self.oi.upsert_batch(keys, vals)
+
+    def delete(self, keys):
+        self.oi.delete_batch(keys)
+
+    def flush(self):
+        self.oi.flush()
+
+    # -- introspection ------------------------------------------------------
+
+    def items(self):
+        # pending entries BEFORE the flat (see OnlineIndex.pending_entries)
+        ok, ovv, ott = self.oi.pending_entries()
+        f = self.oi.store.flat
+        return _merged_items(f.pair_key, f.pair_val, ok, ovv, ott)
+
+    @property
+    def kernel_stats(self) -> dict:
+        return dict(self.oi.kernel_stats,
+                    table_bytes=K.table_bytes(self.oi.store.kernel_tables))
+
+    @property
+    def host(self):
+        return self.oi.dili
+
+    @property
+    def epoch(self) -> int:
+        return self.oi.epoch
+
+    @property
+    def n_flattens(self) -> int:
+        return self.oi.n_flattens
+
+    @property
+    def n_merges(self) -> int:
+        return self.oi.n_merges
+
+    @property
+    def n_full_flattens(self) -> int:
+        return self.oi.n_flattens
+
+    # every flatten is full and nothing is retrained until the maintenance
+    # slice lands
+    n_incremental_flattens = 0
+    n_retrains = 0
+    last_dirty_frac = 1.0
+
+    def _timing_rows(self) -> list[dict]:
+        return [dict(merge_s=st.merge_s, publish_s=st.publish_s,
+                     incremental=st.incremental, dirty_frac=st.dirty_frac)
+                for st in self.oi.store.history[1:]]
+
+    def _stats_overlays(self):
+        # while a frozen overlay is pending, summarize the DEDUPED view (a
+        # key rewritten after the freeze is one distinct pending key)
+        oi = self.oi
+        pend = oi._merging
+        return [oi.overlay] if pend is None else [pend.merged_with(oi.overlay)]
+
+    def _stats_extra(self) -> dict:
+        store = self.oi.store
+        return dict(max_depth=int(store.max_depth),
+                    snapshot_keys=int(store.flat.n_pairs),
+                    merge_reasons=dict(self.oi.merge_reasons),
+                    device_bytes=store.stats.bytes_uploaded)
+
+
+# ---------------------------------------------------------------------------
 # KernelEngine
 # ---------------------------------------------------------------------------
 
@@ -208,6 +365,7 @@ class KernelEngine(EngineTelemetryBase):
 
     def __init__(self, keys: np.ndarray, vals: np.ndarray, cfg: IndexConfig,
                  device="cuda"):
+        _reject_background(cfg, self.name)
         if cfg.maintenance is not None:
             raise NotImplementedError(
                 "maintenance=MaintenanceConfig(...) is not ported yet; see "
@@ -436,4 +594,4 @@ class KernelEngine(EngineTelemetryBase):
                     device_bytes=self.snap.nbytes)
 
 
-ENGINE_CLASSES = {"pallas": KernelEngine}
+ENGINE_CLASSES = {"local": LocalEngine, "pallas": KernelEngine}

@@ -3,14 +3,17 @@
 
     from repro_torch.api import IndexConfig, LearnedIndex
 
-    ix = LearnedIndex.build(keys, vals, config=IndexConfig(engine="pallas"))
+    ix = LearnedIndex.build(keys, vals)    # IndexConfig(): the local engine
     vals, found = ix.lookup(queries)
     ks, vs, cnt = ix.range(lo, hi, max_hits=64)
     ix.upsert(new_keys, new_vals)      # visible immediately (overlay)
     ix.delete(dead_keys)               # visible immediately (tombstones)
     ix.flush()                         # fold + republish (Alg. 7/8)
 
-The engine runs on CUDA unless `build(..., device="cpu")`.  Persistence
+Two engines run: "local" (the default: f64 keys, int64 payloads, one
+launch of the f64 lookup kernel with the overlay resolve fused in) and
+"pallas" (f32 keys through the f32 kernel instance).  The engine runs on
+CUDA unless `build(..., device="cpu")`.  The sharded engine, persistence
 (`save`/`load`), crash recovery and durability, `inspect()` and the
 causal trace export raise NotImplementedError until their slices land
 (see ROADMAP.md).
@@ -52,16 +55,15 @@ class LearnedIndex:
     @classmethod
     def build(cls, keys, vals=None, config: IndexConfig | None = None,
               device="cuda", **overrides) -> "LearnedIndex":
-        """Bulk-load (Alg. 4) through the configured engine on `device`.
-        `overrides` are `IndexConfig` field replacements, e.g.
-        `engine="pallas"`."""
+        """Bulk-load (Alg. 4) through the configured engine on `device`
+        (the default config builds the local engine).  `overrides` are
+        `IndexConfig` field replacements, e.g. `engine="pallas"`."""
         cfg = config or IndexConfig()
         if overrides:
             cfg = replace(cfg, **overrides)
         if cfg.engine not in ENGINE_CLASSES:
-            raise _not_ported(f"engine={cfg.engine!r}",
-                              "the local engine is the next slice; the "
-                              "sharded engine follows")
+            raise _not_ported(f"engine={cfg.engine!r}", "the sharded "
+                              "engine")
         if cfg.durability is not None:
             raise _not_ported("durability", "durability")
         keys = np.atleast_1d(np.asarray(keys, np.float64))
@@ -221,8 +223,9 @@ class LearnedIndex:
 
     @property
     def kernel_stats(self) -> dict:
-        """The engine's kernel counters (lookups, lanes, lanes the
-        pair-table recheck changed) — port only."""
+        """The engine's kernel counters — port only: lookups and lanes on
+        both engines; on "pallas" the lanes the pair-table recheck
+        changed, on "local" the kernel tables' bytes."""
         return dict(self._engine.kernel_stats)
 
     def inspect(self) -> dict:

@@ -58,9 +58,13 @@ def predict_slot(a, b, q, fo):
                          fo - 1)
 
 
+def _pow2_len(n: int) -> int:
+    return 1 << max(int(math.ceil(math.log2(max(n, 1)))), 0)
+
+
 def _pad_pow2(x: np.ndarray, fill) -> np.ndarray:
     n = len(x)
-    m = 1 << max(int(math.ceil(math.log2(max(n, 1)))), 0)
+    m = _pow2_len(n)
     if m == n:
         return x
     out = np.full(m, fill, dtype=x.dtype)
@@ -105,13 +109,12 @@ def device_arrays(flat: FlatDILI, dtype=torch.float64, pad: bool = True,
         tag=_t(tagv, torch.int8, device),
         key=_t(keyv, dtype, device),
         val=_t(conv(f.val, -1), torch.int64, device),
-        pair_key=_t(conv(f.pair_key, np.inf), dtype, device),
-        pair_val=_t(conv(f.pair_val, -1), torch.int64, device),
+        **pair_arrays(flat, dtype, pad=pad, device=device),
         root=torch.tensor(int(f.root), dtype=torch.int32, device=device),
         max_depth=int(f.max_depth),
         has_dense=bool(np.asarray(f.dense).any()),
     )
-    if torch.finfo(dtype).eps <= 2.0 ** -52 or len(tagv) < (1 << 24):
+    if _packs(dtype, len(tagv)):
         out["node_pack"] = _t(np.stack(
             [av, bv, basev.astype(np.float64),
              (fov * np.where(densev > 0, -1, 1)).astype(np.float64)],
@@ -119,6 +122,45 @@ def device_arrays(flat: FlatDILI, dtype=torch.float64, pad: bool = True,
         out["slot_pack"] = _t(
             np.stack([keyv, tagv.astype(np.float64)], axis=1), dtype, device)
     return out
+
+
+def _packs(dtype, n_slots: int) -> bool:
+    """Whether `device_arrays` adds the packed row mirrors."""
+    return torch.finfo(dtype).eps <= 2.0 ** -52 or n_slots < (1 << 24)
+
+
+def pair_arrays(flat: FlatDILI, dtype=torch.float64, pad: bool = True,
+                device="cuda") -> dict:
+    """Only the sorted pair table of `device_arrays` (`pair_key`,
+    `pair_val`, padded alike): all that `range_query_batch` reads."""
+    device = resolve_device(device)
+    conv = _pad_pow2 if pad else (lambda x, fill: x)
+    return dict(pair_key=_t(conv(flat.pair_key, np.inf), dtype, device),
+                pair_val=_t(conv(flat.pair_val, -1), torch.int64, device))
+
+
+def device_layout(flat: FlatDILI, dtype=torch.float64,
+                  pad: bool = True) -> dict:
+    """{name: (shape, dtype)} of the tensors `device_arrays` would give,
+    built and uploaded without: n nodes, m slots and p pairs, each padded
+    to a power of two when `pad`."""
+    size = _pow2_len if pad else (lambda n: n)
+    n, m, p = (size(len(x)) for x in (flat.a, flat.tag, flat.pair_key))
+    out = dict(a=((n,), dtype), b=((n,), dtype), base=((n,), torch.int32),
+               fo=((n,), torch.int32), dense=((n,), torch.int8),
+               tag=((m,), torch.int8), key=((m,), dtype),
+               val=((m,), torch.int64), pair_key=((p,), dtype),
+               pair_val=((p,), torch.int64), root=((), torch.int32))
+    if _packs(dtype, m):
+        out.update(node_pack=((n, 4), dtype), slot_pack=((m, 2), dtype))
+    return out
+
+
+def layout_nbytes(layout: dict) -> int:
+    """Device bytes of a `device_layout`: `DeviceSnapshot.nbytes` of the
+    snapshot it describes."""
+    return sum(math.prod(shape) * dtype.itemsize
+               for shape, dtype in layout.values())
 
 
 def as_snapshot_dict(idx) -> dict:
@@ -318,6 +360,20 @@ def resolve_overlay(ov: dict, queries: torch.Tensor, snap_vals: torch.Tensor,
     vals = ov["vals"][i]
     val = torch.where(live, vals, snap_vals.to(vals.dtype))
     return val, live | (snap_found & ~dead)
+
+
+def search_with_overlay(idx, ov: dict, queries: torch.Tensor,
+                        max_depth: int | None = None, *,
+                        early_exit: bool = True):
+    """Snapshot traversal, then the overlay resolved over its result: the
+    plain counterpart of the reference's fused `search_with_overlay`
+    (overlay hit wins, tombstone hides a snapshot hit).  The local
+    engine's lookups run the f64 kernel instance, which computes the same
+    function (`kernels.ops.search_with_overlay`); this one composes the
+    torch ops over a `DeviceSnapshot`."""
+    v, f = search_batch(idx, queries, max_depth=max_depth,
+                        early_exit=early_exit)
+    return resolve_overlay(ov, queries, v, f)
 
 
 # ---------------------------------------------------------------------------

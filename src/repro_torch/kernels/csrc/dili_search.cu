@@ -44,10 +44,24 @@
 // stops a phase as soon as the fixed-trip vector code would leave its lane
 // unchanged, which gives the same result.
 //
-// The kernel is a template on the key and payload types; only the f32/i32
-// instance is compiled here (the f64/i64 one is for the local engine).  It
-// allocates nothing and does not synchronise; the C entry point launches
-// on the caller's stream and returns the first CUDA error, or 0.
+// Two instances of one template on the key and payload types:
+//   * f32 keys, i32 payloads (`dili_search_f32_launch`): the `pallas`
+//     engine's kernel, above;
+//   * f64 keys, i64 payloads (`dili_search_f64_launch`): the local engine's
+//     read path.  It replaces the XLA dispatch of the reference's
+//     `core/search.py::search_with_overlay`: the f64 walk, the dense probe
+//     and, as an epilogue in the same launch, `resolve_overlay` over the
+//     pending-write overlay (lower bound over its sorted keys, a tombstone
+//     hides the snapshot's hit, a live entry's val wins).  Its records are
+//     twice as wide: a node is 32 bytes {a, b, base, fo, pad}, two v4
+//     loads; a slot 16 bytes {key bits, val}, one v4 load; the sentinels
+//     are 64-bit NaNs.  The prediction is __dadd_rn(a, __dmul_rn(b, q)).
+//     A standard f64 build has no dense leaf, so the walk is the whole
+//     cost, and at 1M keys its tables (about 75 MB) no longer fit the L2.
+// The overlay epilogue runs when the caller passes an overlay (length > 0);
+// the f32 entry point passes none.  The kernel allocates nothing and does
+// not synchronise; each C entry point launches on the caller's stream and
+// returns the first CUDA error, or 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,7 +84,19 @@ struct KeyTraits<float> {
   __device__ static float add_rn(float x, float y) { return __fadd_rn(x, y); }
 };
 
-// 16-byte node record; fo < 0 marks a dense leaf of fanout -fo
+template <>
+struct KeyTraits<double> {
+  using Bits = unsigned long long;
+  static constexpr Bits kChildBits = 0x7ff8000000000002ull;  // CHILD sentinel
+  __device__ static Bits bits(double k) {
+    return static_cast<Bits>(__double_as_longlong(k));
+  }
+  __device__ static double mul_rn(double x, double y) { return __dmul_rn(x, y); }
+  __device__ static double add_rn(double x, double y) { return __dadd_rn(x, y); }
+};
+
+// node record, 16 bytes at f32 and 32 at f64 (padded); fo < 0 marks a
+// dense leaf of fanout -fo
 template <typename Key>
 struct alignas(16) NodeRec {
   Key a, b;
@@ -87,6 +113,9 @@ struct alignas(sizeof(Key) + sizeof(Val)) SlotRec {
 
 static_assert(sizeof(NodeRec<float>) == 16, "node record is one v4 load");
 static_assert(sizeof(SlotRec<float, int>) == 8, "slot record is one v2 load");
+static_assert(sizeof(NodeRec<double>) == 32, "node record is two v4 loads");
+static_assert(sizeof(SlotRec<double, long long>) == 16,
+              "slot record is one v4 load");
 
 // read-only vector load of a whole record (ld.global.nc.v4 / .v2)
 template <typename T>
@@ -108,10 +137,13 @@ __device__ __forceinline__ T ld_record(const T* p) {
 
 template <typename Key>
 __device__ __forceinline__ int sat_to_i32(Key x) {
-  // x is already floored; saturate like XLA's convert before the cast
+  // x is already floored; saturate like XLA's convert before the cast.
+  // +-2^31 is exact in both key types, so the constants are of the key's
+  // own type (double for the f64 instance).
+  constexpr Key kTwo31 = static_cast<Key>(2147483648.0);
   if (x != x) return 0;
-  if (x >= Key(2147483648.0)) return 2147483647;
-  if (x < Key(-2147483648.0)) return (-2147483647 - 1);
+  if (x >= kTwo31) return 2147483647;
+  if (x < -kTwo31) return (-2147483647 - 1);
   return static_cast<int>(x);
 }
 
@@ -119,6 +151,7 @@ __device__ __forceinline__ int sat_to_i32(Key x) {
 template <typename Key>
 __device__ __forceinline__ int predict_slot(Key a, Key b, Key q, int fo) {
   using T = KeyTraits<Key>;
+  // floor is the overload of the key's type
   const int p = sat_to_i32(floor(T::add_rn(a, T::mul_rn(b, q))));
   return min(max(p, 0), fo - 1);
 }
@@ -165,14 +198,46 @@ __device__ __forceinline__ void dense_probe(
   }
 }
 
+// `resolve_overlay` on one lane: the lower bound of q over all n overlay
+// keys (the +inf padding of the capacity included, as torch.searchsorted
+// bisects it), clipped to n - 1; if that key equals q (never for a NaN
+// lane), a tombstone hides the snapshot's hit and keeps its val, and a live
+// entry's val wins.
+template <typename Key, typename Val>
+__device__ __forceinline__ void overlay_resolve(
+    const Key* __restrict__ ov_keys, const Val* __restrict__ ov_vals,
+    const int8_t* __restrict__ ov_tomb, int64_t n, Key q, Val& out,
+    bool& hit) {
+  int64_t lo = 0, hi = n;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (__ldg(ov_keys + mid) < q) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const int64_t i = lo < n - 1 ? lo : n - 1;
+  if (__ldg(ov_keys + i) == q) {
+    if (__ldg(ov_tomb + i) > 0) {
+      hit = false;
+    } else {
+      out = __ldg(ov_vals + i);
+      hit = true;
+    }
+  }
+}
+
 template <typename Key, typename Val>
 __global__ void __launch_bounds__(kThreads)
 dili_search_kernel(const NodeRec<Key>* __restrict__ nodes,
                    const SlotRec<Key, Val>* __restrict__ slots,
                    const Key* __restrict__ keys, int root,
                    const Key* __restrict__ queries, int64_t nq,
-                   int max_depth, Val* __restrict__ out,
-                   bool* __restrict__ found) {
+                   int max_depth, const Key* __restrict__ ov_keys,
+                   const Val* __restrict__ ov_vals,
+                   const int8_t* __restrict__ ov_tomb, int64_t ov_n,
+                   Val* __restrict__ out, bool* __restrict__ found) {
   using T = KeyTraits<Key>;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= nq) return;
@@ -206,19 +271,16 @@ dili_search_kernel(const NodeRec<Key>* __restrict__ nodes,
   // stands on is dense (search_batch's exit does the same)
   if (!loaded) nd = ld_record(nodes + n);
   if (nd.fo < 0) dense_probe(nd, slots, keys, q, v, hit);
+  if (ov_n > 0) overlay_resolve(ov_keys, ov_vals, ov_tomb, ov_n, q, v, hit);
   out[i] = v;
   found[i] = hit;
 }
 
-}  // namespace
-
-extern "C" int dili_search_f32_launch(const void* nodes, const void* slots,
-                                      const void* keys, int root,
-                                      const void* queries, long long nq,
-                                      int max_depth, void* out, void* found,
-                                      void* stream) {
-  using Key = float;
-  using Val = int;
+template <typename Key, typename Val>
+int launch(const void* nodes, const void* slots, const void* keys, int root,
+           const void* queries, long long nq, int max_depth,
+           const void* ov_keys, const void* ov_vals, const void* ov_tomb,
+           long long ov_n, void* out, void* found, void* stream) {
   if (nq <= 0) return static_cast<int>(cudaSuccess);
   const long long blocks = (nq + kThreads - 1) / kThreads;
   dili_search_kernel<Key, Val>
@@ -228,6 +290,36 @@ extern "C" int dili_search_f32_launch(const void* nodes, const void* slots,
           static_cast<const SlotRec<Key, Val>*>(slots),
           static_cast<const Key*>(keys), root,
           static_cast<const Key*>(queries), static_cast<int64_t>(nq),
-          max_depth, static_cast<Val*>(out), static_cast<bool*>(found));
+          max_depth, static_cast<const Key*>(ov_keys),
+          static_cast<const Val*>(ov_vals),
+          static_cast<const int8_t*>(ov_tomb), static_cast<int64_t>(ov_n),
+          static_cast<Val*>(out), static_cast<bool*>(found));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// f32 keys, i32 payloads, no overlay: the `pallas` engine's lookup
+extern "C" int dili_search_f32_launch(const void* nodes, const void* slots,
+                                      const void* keys, int root,
+                                      const void* queries, long long nq,
+                                      int max_depth, void* out, void* found,
+                                      void* stream) {
+  return launch<float, int>(nodes, slots, keys, root, queries, nq, max_depth,
+                            nullptr, nullptr, nullptr, 0, out, found, stream);
+}
+
+// f64 keys, i64 payloads, with the overlay resolve fused in when ov_n > 0
+// (ov_n is the overlay's capacity, its +inf padding included): the local
+// engine's lookup
+extern "C" int dili_search_f64_launch(const void* nodes, const void* slots,
+                                      const void* keys, int root,
+                                      const void* queries, long long nq,
+                                      int max_depth, const void* ov_keys,
+                                      const void* ov_vals,
+                                      const void* ov_tomb, long long ov_n,
+                                      void* out, void* found, void* stream) {
+  return launch<double, long long>(nodes, slots, keys, root, queries, nq,
+                                   max_depth, ov_keys, ov_vals, ov_tomb, ov_n,
+                                   out, found, stream);
 }

@@ -1,20 +1,26 @@
-"""Loader and wrapper of the CUDA DILI lookup kernel
+"""Loader and wrappers of the CUDA DILI lookup kernel
 (`csrc/dili_search.cu`), the port of the Pallas kernel in
 `repro/kernels/dili_search.py` together with the XLA recheck of its
-flagged lanes: one launch returns each query's final (val, found).
+flagged lanes: one launch returns each query's final (val, found).  Two
+instances: `dili_search` (f32 keys, i32 payloads; the `pallas` engine)
+and `dili_search_f64` (f64 keys, i64 payloads, with the overlay resolve
+fused in; the local engine, in place of the reference's XLA
+`core/search.py::search_with_overlay`).
 
 Build: at first use on a CUDA tensor, `nvcc` compiles the source for
-`sm_90a` into a shared library with a plain C entry point under
-`kernels/_build/` (listed in .gitignore), named by the source's hash so an
-edited source is rebuilt; a fresh build keeps ptxas's register and
-shared-memory report in `kernel.ptxas_report`.  The library is loaded
+`sm_90a` into one shared library with a plain C entry point per
+instance under `kernels/_build/` (listed in .gitignore), named by the
+source's hash so an edited source is rebuilt; a fresh build keeps
+ptxas's register and shared-memory report (both instances) in
+`kernel.ptxas_report`.  The library is loaded
 with `ctypes` and the kernel launches on PyTorch's current stream.
 Nothing here runs at import time, so the CPU tests import this module on
 machines with no compiler.
 
 Dispatch: a CUDA tensor launches the kernel or raises (no `nvcc`, a
 failed build, a refused launch); a CPU tensor runs the plain version
-`ref.dili_search_ref`.  There is no silent fallback between the two.
+(`ref.dili_search_ref`, `ref.search_with_overlay_ref`).  There is no
+silent fallback between the two.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from pathlib import Path
 import torch
 
 from ..obs import watchdog
-from .ref import dili_search_ref
+from .ref import dili_search_ref, search_with_overlay_ref
 
 _SRC = Path(__file__).parent / "csrc" / "dili_search.cu"
 _BUILD_DIR = Path(__file__).parent / "_build"
@@ -51,27 +57,28 @@ def _find_nvcc() -> str:
                        "lookup kernel")
 
 
-class DiliSearchKernel:
-    """The built library plus its launch counter.  `launches` counts
-    kernel launches only (one per `launch` call that reached the card);
-    callers may reset it to 0 to count a window."""
+_F32_ARGS = ([ctypes.c_void_p] * 3
+             + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
+             + [ctypes.c_void_p] * 3)
+_F64_ARGS = (_F32_ARGS[:7] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+             + [ctypes.c_void_p] * 3)
+
+
+class _Library:
+    """The shared library of `csrc/dili_search.cu` (both instances), built
+    once per process."""
 
     def __init__(self):
-        self._lib = None
+        self.lib = None
         self._lock = threading.Lock()
-        self.launches = 0
         self.build_s = 0.0          # wall seconds of the build, 0 until built
         self.ptxas_report = ""      # `-Xptxas -v` lines of a fresh build
 
-    @property
-    def built(self) -> bool:
-        return self._lib is not None
-
-    def build(self) -> None:
+    def load(self) -> ctypes.CDLL:
         """Compile (if this source's library is not on disk) and load."""
         with self._lock:
-            if self._lib is not None:
-                return
+            if self.lib is not None:
+                return self.lib
             t0 = time.perf_counter()
             digest = hashlib.sha256(_SRC.read_bytes()
                                     + " ".join(NVCC_FLAGS).encode())
@@ -91,62 +98,86 @@ class DiliSearchKernel:
                     ln for ln in (res.stdout + res.stderr).splitlines()
                     if "ptxas info" in ln)
             lib = ctypes.CDLL(str(lib_path))
-            fn = lib.dili_search_f32_launch
-            fn.argtypes = ([ctypes.c_void_p] * 3
-                           + [ctypes.c_int, ctypes.c_void_p,
-                              ctypes.c_longlong, ctypes.c_int]
-                           + [ctypes.c_void_p] * 3)
-            fn.restype = ctypes.c_int
-            self._lib = lib
+            for name, argtypes in (("dili_search_f32_launch", _F32_ARGS),
+                                   ("dili_search_f64_launch", _F64_ARGS)):
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            self.lib = lib
             self.build_s = time.perf_counter() - t0
+            return lib
 
-    def launch(self, node_rec: torch.Tensor, slot_rec: torch.Tensor,
-               key: torch.Tensor, queries: torch.Tensor, root: int,
-               max_depth: int, out: torch.Tensor,
-               found: torch.Tensor) -> None:
-        self.build()
+
+_library = _Library()
+
+
+class DiliSearchKernel:
+    """One instance of the kernel (one C entry point of the shared
+    library) plus its launch counter.  `launches` counts this instance's
+    kernel launches only (one per `launch` call that reached the card);
+    callers may reset it to 0 to count a window.  `build()` builds the
+    library, which holds both instances.  An empty batch launches
+    nothing and is not counted."""
+
+    def __init__(self, entry: str):
+        self.entry = entry
+        self.launches = 0
+
+    @property
+    def built(self) -> bool:
+        return _library.lib is not None
+
+    @property
+    def build_s(self) -> float:
+        return _library.build_s
+
+    @property
+    def ptxas_report(self) -> str:
+        return _library.ptxas_report
+
+    def build(self) -> None:
+        _library.load()
+
+    def launch(self, queries: torch.Tensor, *ptrs) -> None:
+        """Launch on `queries`' device and current stream; `ptrs` are the
+        entry point's arguments before the stream."""
+        fn = getattr(_library.load(), self.entry)
         stream = torch.cuda.current_stream(queries.device).cuda_stream
-        err = self._lib.dili_search_f32_launch(
-            node_rec.data_ptr(), slot_rec.data_ptr(), key.data_ptr(),
-            int(root), queries.data_ptr(), queries.numel(), int(max_depth),
-            out.data_ptr(), found.data_ptr(), stream)
+        err = fn(*ptrs, stream)
         if err != 0:
-            raise RuntimeError(f"dili_search kernel launch failed: CUDA "
-                               f"error {err}")
-        self.launches += 1
+            raise RuntimeError(f"{self.entry} failed: CUDA error {err}")
+        if queries.numel():           # the entry point returns early on 0
+            self.launches += 1
 
 
-#: the process's one kernel instance (its `launches` is the counter the
-#: smoke run reads)
-kernel = DiliSearchKernel()
+#: the f32/i32 instance (the `pallas` engine's kernel) and the f64/i64
+#: instance with the overlay resolve (the local engine's); their
+#: `launches` are the counters the smoke run reads
+kernel = DiliSearchKernel("dili_search_f32_launch")
+kernel_f64 = DiliSearchKernel("dili_search_f64_launch")
 watchdog.register_jit_provider("kernels.dili_search",
                                lambda: int(kernel.built))
+
+# per key dtype: the records' word dtype (node [n, 4], slot [n, 2]) and
+# the slot record's alignment in bytes (the node record's is 16)
+_RECORDS = {torch.float32: (torch.int32, 8), torch.float64: (torch.int64, 16)}
 
 
 def _check(node_rec: torch.Tensor, slot_rec: torch.Tensor,
            key: torch.Tensor, queries: torch.Tensor, root: int,
-           max_depth: int) -> None:
+           max_depth: int, key_dtype: torch.dtype) -> None:
     dev = queries.device
-    if queries.dtype != torch.float32 or queries.dim() != 1:
-        raise TypeError(f"queries must be 1-D float32, got "
+    if queries.dtype != key_dtype or queries.dim() != 1:
+        raise TypeError(f"queries must be 1-D {key_dtype}, got "
                         f"{queries.dtype} {tuple(queries.shape)}")
     if not queries.is_contiguous():
         raise ValueError("queries must be contiguous")
+    rec_dtype, slot_align = _RECORDS[key_dtype]
     for name, t, dtype, width, align in (
-            ("node_rec", node_rec, torch.int32, 4, 16),
-            ("slot_rec", slot_rec, torch.int32, 2, 8),
-            ("key", key, torch.float32, None, 4)):
-        shape = (t.shape[0], width) if width else (t.shape[0],)
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            want = f"[n, {width}]" if width else "[n]"
-            raise TypeError(f"{name} must be {dtype} {want}, got {t.dtype} "
-                            f"{tuple(t.shape)}")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if dev.type == "cuda" and t.data_ptr() % align:
-            raise ValueError(f"{name} must be {align}-byte aligned")
+            ("node_rec", node_rec, rec_dtype, 4, 16),
+            ("slot_rec", slot_rec, rec_dtype, 2, slot_align),
+            ("key", key, key_dtype, None, key_dtype.itemsize)):
+        _check_tensor(name, t, dtype, width, align, dev)
     if slot_rec.shape[0] != key.shape[0]:
         raise ValueError(f"slot_rec has {slot_rec.shape[0]} rows, key has "
                          f"{key.shape[0]}")
@@ -156,20 +187,87 @@ def _check(node_rec: torch.Tensor, slot_rec: torch.Tensor,
         raise ValueError(f"max_depth must be >= 0, got {max_depth}")
 
 
+def _check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                  width: int | None, align: int, dev: torch.device) -> None:
+    shape = (t.shape[0], width) if width else (t.shape[0],)
+    if t.dtype != dtype or tuple(t.shape) != shape:
+        want = f"[n, {width}]" if width else "[n]"
+        raise TypeError(f"{name} must be {dtype} {want}, got {t.dtype} "
+                        f"{tuple(t.shape)}")
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, queries on {dev}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if dev.type == "cuda" and t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def _check_overlay(ov: dict, dev: torch.device) -> int:
+    """The overlay mirror's length (its capacity); 1-D f64 keys, i64 vals
+    and i8 tomb of one length on the queries' device."""
+    n = ov["keys"].shape[0]
+    for name, dtype, size in (("keys", torch.float64, 8),
+                              ("vals", torch.int64, 8),
+                              ("tomb", torch.int8, 1)):
+        _check_tensor(f"overlay {name}", ov[name], dtype, None, size, dev)
+        if ov[name].shape[0] != n:
+            raise ValueError(f"overlay {name} has {ov[name].shape[0]} rows, "
+                             f"keys have {n}")
+    if n == 0:
+        raise ValueError("an overlay needs at least one row (its capacity)")
+    return n
+
+
+def _device_type(queries: torch.Tensor) -> str:
+    if queries.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {queries.device}")
+    return queries.device.type
+
+
 def dili_search(node_rec, slot_rec, key, queries, root: int,
                 max_depth: int):
     """(vals i32, found bool) for a batch of f32 queries over the kernel
     tables (`ops.pack_tables`); vals is -1 where not found.  CUDA tensors
     launch the kernel; CPU tensors run the plain version."""
-    _check(node_rec, slot_rec, key, queries, root, max_depth)
-    if queries.device.type == "cpu":
+    _check(node_rec, slot_rec, key, queries, root, max_depth, torch.float32)
+    if _device_type(queries) == "cpu":
         return dili_search_ref(node_rec, slot_rec, key, queries, root,
                                max_depth)
-    if queries.device.type != "cuda":
-        raise ValueError(f"unsupported device {queries.device}")
     nq = queries.numel()
     out = torch.empty(nq, dtype=torch.int32, device=queries.device)
     found = torch.empty(nq, dtype=torch.bool, device=queries.device)
-    kernel.launch(node_rec, slot_rec, key, queries, root, max_depth, out,
-                  found)
+    kernel.launch(queries, node_rec.data_ptr(), slot_rec.data_ptr(),
+                  key.data_ptr(), int(root), queries.data_ptr(), nq,
+                  int(max_depth), out.data_ptr(), found.data_ptr())
+    return out, found
+
+
+def dili_search_f64(node_rec, slot_rec, key, queries, root: int,
+                    max_depth: int, ov: dict | None = None,
+                    early_exit: bool = True):
+    """(vals i64, found bool) for a batch of f64 queries over the f64
+    kernel tables (`ops.pack_tables(..., dtype=torch.float64)`), with the
+    overlay mirror `ov` (`online.overlay.overlay_device_arrays`: keys,
+    vals, tomb at its capacity) resolved over the snapshot's result, as
+    the reference's `search_with_overlay`.  CUDA tensors launch the f64
+    instance, walk, dense probe and overlay in one launch; CPU tensors run
+    the plain version.  `early_exit` changes nothing in the result: the
+    plain version stops the batch once every lane is done, and on the card
+    each thread stops on its own whatever it says."""
+    _check(node_rec, slot_rec, key, queries, root, max_depth, torch.float64)
+    ov_n = 0 if ov is None else _check_overlay(ov, queries.device)
+    if _device_type(queries) == "cpu":
+        return search_with_overlay_ref(node_rec, slot_rec, key, queries,
+                                       root, max_depth, ov,
+                                       early_exit=early_exit)
+    nq = queries.numel()
+    out = torch.empty(nq, dtype=torch.int64, device=queries.device)
+    found = torch.empty(nq, dtype=torch.bool, device=queries.device)
+    ov_ptrs = ((0, 0, 0) if ov is None else
+               (ov["keys"].data_ptr(), ov["vals"].data_ptr(),
+                ov["tomb"].data_ptr()))
+    kernel_f64.launch(queries, node_rec.data_ptr(), slot_rec.data_ptr(),
+                      key.data_ptr(), int(root), queries.data_ptr(), nq,
+                      int(max_depth), *ov_ptrs, ov_n, out.data_ptr(),
+                      found.data_ptr())
     return out, found

@@ -24,9 +24,17 @@ that the dense probe reads:
   * `key` f32 [n_slots], the key column as flattened;
   * host statics `root` (node id) and `max_depth`.
 
-Keys are f32 on this path; the snapshot must have been built under
-`placement_dtype(np.float32)` so construction and kernel arithmetic agree
-(see core/dili.py).  `build_f32_index` does exactly that.
+Keys are f32 on the `pallas` path; that snapshot must have been built
+under `placement_dtype(np.float32)` so construction and kernel arithmetic
+agree (see core/dili.py).  `build_f32_index` does exactly that.
+
+The local engine's tables (`pack_tables(..., dtype=torch.float64)`) have
+the same fields at twice the width: `node_rec` int64 [n_nodes, 4] =
+(a bits, b bits, base and fo as the low and high int32 halves of one word,
+padding), 32 bytes a node with fo signed as above; `slot_rec` int64 [n_slots, 2] = (key bits, val), with the 64-bit
+sentinels `CHILD_KEY_BITS_F64` and the quiet NaN `EMPTY_KEY_BITS_F64`;
+`key` f64.  Its lookup, `search_with_overlay`, also resolves the
+pending-write overlay in the same launch.
 """
 
 from __future__ import annotations
@@ -38,7 +46,9 @@ from ..core.dili import bulk_load, placement_dtype
 from ..core.flat import TAG_CHILD, TAG_EMPTY, TAG_PAIR, FlatDILI
 from ..device import resolve_device
 from .dili_search import dili_search as dili_search_kernel
-from .ref import CHILD_KEY_BITS, EMPTY_KEY_BITS
+from .dili_search import dili_search_f64
+from .ref import (CHILD_KEY_BITS, CHILD_KEY_BITS_F64, EMPTY_KEY_BITS,
+                  EMPTY_KEY_BITS_F64)
 
 
 def build_f32_index(keys: np.ndarray, vals: np.ndarray | None = None, **kw):
@@ -51,33 +61,55 @@ def build_f32_index(keys: np.ndarray, vals: np.ndarray | None = None, **kw):
     return d, keys32
 
 
-def pack_tables(cols: dict, device="cuda") -> dict:
+_KEY_NP = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def pack_tables(cols: dict, device="cuda", dtype=torch.float32) -> dict:
     """Kernel tables from the column tables `a, b, base, fo, dense, tag,
     key, val, root, max_depth` (numpy arrays or anything `np.asarray`
     takes, e.g. the JAX package's `kernel_arrays`), on CUDA unless `device`
-    says otherwise.  Values are cast as the reference casts them: f32
-    models and keys, int32 the rest."""
+    says otherwise.  `dtype` is the key type: at float32, models and keys
+    are f32 and payloads int32, as the reference casts them; at float64
+    (the local engine), f64 and int64, with the records twice as wide and
+    the sentinels 64-bit NaNs (see the module docstring)."""
     device = resolve_device(device)
-    a = np.asarray(cols["a"]).astype(np.float32)
-    b = np.asarray(cols["b"]).astype(np.float32)
+    if dtype not in _KEY_NP:
+        raise TypeError(f"key dtype must be float32 or float64, got {dtype}")
+    kdt = _KEY_NP[dtype]
+    wide = kdt is np.float64
+    bits, child, empty = ((np.int64, CHILD_KEY_BITS_F64, EMPTY_KEY_BITS_F64)
+                          if wide else
+                          (np.int32, CHILD_KEY_BITS, EMPTY_KEY_BITS))
+    a = np.asarray(cols["a"]).astype(kdt)
+    b = np.asarray(cols["b"]).astype(kdt)
     base = np.asarray(cols["base"]).astype(np.int32)
     fo = np.asarray(cols["fo"]).astype(np.int32)
     dense = np.asarray(cols["dense"]) > 0
     tag = np.asarray(cols["tag"]).astype(np.int32)
-    key = np.asarray(cols["key"]).astype(np.float32)
-    val = np.asarray(cols["val"]).astype(np.int32)
+    key = np.asarray(cols["key"]).astype(kdt)
+    val = np.asarray(cols["val"]).astype(bits)
     root = int(np.asarray(cols["root"]).reshape(-1)[0])
     if len(fo) and fo.min() < 1:
         raise ValueError("every node needs a fanout >= 1 (the dense flag "
                          "is the sign of fo)")
     if not np.isin(tag, (TAG_EMPTY, TAG_PAIR, TAG_CHILD)).all():
         raise ValueError("slot tags must be EMPTY, PAIR or CHILD")
-    node_rec = np.stack([a.view(np.int32), b.view(np.int32), base,
-                         np.where(dense, -fo, fo)], axis=1)
-    kbits = key.view(np.int32).copy()
-    kbits[(tag == TAG_EMPTY) | ((tag == TAG_PAIR) & np.isnan(key))] = (
-        EMPTY_KEY_BITS)
-    kbits[tag == TAG_CHILD] = CHILD_KEY_BITS
+    fo_signed = np.where(dense, -fo, fo)
+    if wide:
+        # 32 bytes a node: a, b, then base and fo as the two int32 halves
+        # of one word, then a word of padding
+        words = np.zeros((len(fo), 8), np.int32)
+        words[:, 0:2] = a.view(np.int32).reshape(-1, 2)
+        words[:, 2:4] = b.view(np.int32).reshape(-1, 2)
+        words[:, 4] = base
+        words[:, 5] = fo_signed
+        node_rec = words.view(np.int64)
+    else:
+        node_rec = np.stack([a.view(np.int32), b.view(np.int32), base,
+                             fo_signed], axis=1)
+    kbits = key.view(bits).copy()
+    kbits[(tag == TAG_EMPTY) | ((tag == TAG_PAIR) & np.isnan(key))] = empty
+    kbits[tag == TAG_CHILD] = child
     slot_rec = np.stack([kbits, val], axis=1)
 
     def t(x):
@@ -87,13 +119,15 @@ def pack_tables(cols: dict, device="cuda") -> dict:
                 root=root, max_depth=int(np.asarray(cols["max_depth"])))
 
 
-def kernel_arrays(flat: FlatDILI, device="cuda") -> dict:
-    """The kernel tables of a flattened snapshot (`pack_tables`), on CUDA
-    unless `device` says otherwise."""
+def kernel_arrays(flat: FlatDILI, device="cuda",
+                  dtype=torch.float32) -> dict:
+    """The kernel tables of a flattened snapshot (`pack_tables`) with keys
+    of `dtype`, on CUDA unless `device` says otherwise."""
     return pack_tables(dict(a=flat.a, b=flat.b, base=flat.base, fo=flat.fo,
                             dense=flat.dense, tag=flat.tag, key=flat.key,
                             val=flat.val, root=flat.root,
-                            max_depth=flat.max_depth), device=device)
+                            max_depth=flat.max_depth), device=device,
+                       dtype=dtype)
 
 
 def table_bytes(arrs: dict) -> int:
@@ -103,20 +137,42 @@ def table_bytes(arrs: dict) -> int:
 
 
 def column_bytes(arrs: dict) -> int:
-    """Bytes of the same tables in the reference's column layout, one
-    4-byte word per field (five a node, three a slot, and the root): the
-    `table_bytes` that `stats()` reports on every engine."""
-    return 4 * (5 * arrs["node_rec"].shape[0] + 3 * arrs["key"].shape[0] + 1)
+    """Bytes of the same tables in the reference's column layout (the
+    `table_bytes` that `stats()` reports on the `pallas` engine): a node
+    is a, b of the key's width and base, fo, dense of 4 bytes; a slot a
+    4-byte tag, a key and a val of the key's width (int32 vals at f32,
+    int64 at f64); and a 4-byte root."""
+    w = arrs["key"].element_size()
+    return (arrs["node_rec"].shape[0] * (2 * w + 12)
+            + arrs["key"].shape[0] * (4 + 2 * w) + 4)
 
 
 def dili_search(arrs: dict, queries: torch.Tensor,
                 stats: dict | None = None):
-    """Batched lookup through the kernel: (vals i32, found bool) for the
-    f32 `queries`.  With `stats`, adds this call's lane count to
+    """Batched lookup through the f32 kernel: (vals i32, found bool) for
+    the f32 `queries`.  With `stats`, adds this call's lane count to
     `stats["lanes"]`."""
     out, found = dili_search_kernel(
         arrs["node_rec"], arrs["slot_rec"], arrs["key"], queries,
         root=arrs["root"], max_depth=arrs["max_depth"])
+    if stats is not None:
+        stats["lanes"] = stats.get("lanes", 0) + queries.shape[0]
+    return out, found
+
+
+def search_with_overlay(arrs: dict, ov: dict, queries: torch.Tensor, *,
+                        early_exit: bool = True,
+                        stats: dict | None = None):
+    """The local engine's lookup: (vals i64, found bool) for the f64
+    `queries` over the f64 kernel tables, with the overlay mirror `ov`
+    resolved over the snapshot's result — the reference's
+    `core/search.py::search_with_overlay`, in one launch of the f64
+    instance on the card.  With `stats`, adds this call's lane count to
+    `stats["lanes"]`."""
+    out, found = dili_search_f64(
+        arrs["node_rec"], arrs["slot_rec"], arrs["key"], queries,
+        root=arrs["root"], max_depth=arrs["max_depth"], ov=ov,
+        early_exit=early_exit)
     if stats is not None:
         stats["lanes"] = stats.get("lanes", 0) + queries.shape[0]
     return out, found

@@ -1,14 +1,17 @@
 """Plain PyTorch version of the DILI lookup kernel (port of
-`repro/kernels/ref.py`, extended by the dense-leaf probe).
+`repro/kernels/ref.py`, extended by the dense-leaf probe and, for the f64
+instance, the overlay resolve).
 
 The same function as `csrc/dili_search.cu` on the same tables: decode the
 packed records (`ops.pack_tables`) back into columns and run
 `core/search.py::search_batch`, the Alg. 6 walk with its Alg. 1 dense
-probe, at the given `max_depth`.  f32 keys and models, mul-then-add slot
+probe, at the given `max_depth`; the f64 instance then runs
+`core/search.py::resolve_overlay` over the overlay mirror, which is the
+reference's `core/search.py::search_with_overlay`.  Mul-then-add slot
 prediction with two roundings, XLA's saturating float->int32 cast.  The
-CPU tests hold it against the JAX package's `kernels/ops.py::dili_search`
-(the Pallas kernel plus its XLA recheck); on the card the CUDA kernel is
-held against it.
+CPU tests hold it against the JAX package (`kernels/ops.py::dili_search`,
+the Pallas kernel plus its XLA recheck, at f32; `search_with_overlay` at
+f64); on the card the CUDA kernel is held against it.
 """
 
 from __future__ import annotations
@@ -18,32 +21,54 @@ import torch
 from ..core import search as S
 from ..core.flat import TAG_CHILD, TAG_EMPTY, TAG_PAIR
 
-CHILD_KEY_BITS = 0x7FC00002      # slot record key of a CHILD slot (a NaN)
-EMPTY_KEY_BITS = 0x7FC00000      # ... of an EMPTY slot (the quiet NaN)
+# slot record key of a CHILD slot (a NaN) and of an EMPTY slot (the quiet
+# NaN), per key width
+CHILD_KEY_BITS = 0x7FC00002
+EMPTY_KEY_BITS = 0x7FC00000
+CHILD_KEY_BITS_F64 = 0x7FF8000000000002
+EMPTY_KEY_BITS_F64 = 0x7FF8000000000000
 
 
 def unpack_tables(node_rec, slot_rec, key) -> dict:
     """The column tables (`a, b, base, fo, dense, tag, key, val`) that the
-    records hold, as `core.search` reads them."""
+    records hold, as `core.search` reads them.  f32 records are int32
+    (node [n, 4] = a, b, base, fo; slot [n, 2] = key bits, val); f64
+    records are int64 (node [n, 4] = a, b, then base and fo as two int32
+    halves of one word, then padding; slot [n, 2] = key bits, val)."""
+    if node_rec.dtype == torch.int64:
+        words = node_rec.view(torch.int32)          # [n, 8]
+        fdt, child = torch.float64, CHILD_KEY_BITS_F64
+        base, fo_signed = words[:, 4], words[:, 5]
+    else:
+        fdt, child = torch.float32, CHILD_KEY_BITS
+        base, fo_signed = node_rec[:, 2], node_rec[:, 3]
     kbits = slot_rec[:, 0]
-    fo_signed = node_rec[:, 3]
-    pair = torch.full_like(kbits, TAG_PAIR)
-    tag = torch.where(kbits == CHILD_KEY_BITS, torch.full_like(kbits,
-                                                               TAG_CHILD),
-                      torch.where(torch.isnan(kbits.view(torch.float32)),
-                                  torch.full_like(kbits, TAG_EMPTY), pair))
-    return dict(a=node_rec[:, 0].view(torch.float32),
-                b=node_rec[:, 1].view(torch.float32),
-                base=node_rec[:, 2], fo=fo_signed.abs(),
+    tag = torch.where(kbits == child, TAG_CHILD,
+                      torch.where(torch.isnan(kbits.view(fdt)), TAG_EMPTY,
+                                  TAG_PAIR)).to(torch.int32)
+    return dict(a=node_rec[:, 0].view(fdt), b=node_rec[:, 1].view(fdt),
+                base=base, fo=fo_signed.abs(),
                 dense=(fo_signed < 0).to(torch.int32), tag=tag, key=key,
                 val=slot_rec[:, 1])
 
 
 def dili_search_ref(node_rec, slot_rec, key, queries, root: int,
-                    max_depth: int):
-    """Returns (vals i32, found bool) per query; vals is -1 where not
-    found."""
+                    max_depth: int, early_exit: bool = False):
+    """Returns (vals, found) per query; vals is -1 where not found."""
     idx = unpack_tables(node_rec, slot_rec, key)
     idx.update(root=torch.tensor(int(root), dtype=torch.int32,
                                  device=queries.device), has_dense=True)
-    return S.search_batch(idx, queries, max_depth=int(max_depth))
+    return S.search_batch(idx, queries, max_depth=int(max_depth),
+                          early_exit=early_exit)
+
+
+def search_with_overlay_ref(node_rec, slot_rec, key, queries, root: int,
+                            max_depth: int, ov: dict | None = None,
+                            early_exit: bool = False):
+    """`dili_search_ref`, then the overlay mirror `ov` (keys, vals, tomb)
+    resolved over its result; without `ov`, the snapshot's result."""
+    v, f = dili_search_ref(node_rec, slot_rec, key, queries, root,
+                           max_depth, early_exit=early_exit)
+    if ov is None:
+        return v, f
+    return S.resolve_overlay(ov, queries, v, f)

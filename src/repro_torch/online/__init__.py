@@ -1,9 +1,15 @@
-"""Online-update pieces of the port: the tombstone overlay, its device
-mirror, the merge policy and the λ-pressure trigger."""
+"""Online-update subsystem of the port (DESIGN.md section 8): the
+tombstone overlay and its device mirror, the epoch-versioned
+double-buffered snapshot publisher, the merge policy with its λ-pressure
+trigger, and the `OnlineIndex` facade behind the local engine."""
 
 from .overlay import (LIVE, TOMBSTONE, TombstoneOverlay, fold_overlay,
                       overlay_device_arrays)
-from .merge import MergePolicy, adjust_pressure
+from .epoch import EpochStats, SnapshotStore
+from .merge import MergePolicy, OnlineIndex, adjust_pressure
+from ..maintain import MaintenanceConfig
 
 __all__ = ["LIVE", "TOMBSTONE", "TombstoneOverlay", "fold_overlay",
-           "overlay_device_arrays", "MergePolicy", "adjust_pressure"]
+           "overlay_device_arrays", "EpochStats", "SnapshotStore",
+           "MergePolicy", "OnlineIndex", "adjust_pressure",
+           "MaintenanceConfig"]

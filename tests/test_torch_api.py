@@ -1,9 +1,12 @@
-"""The port's facade on the `pallas` engine against the JAX package's.
+"""The port's facade on the `local` and `pallas` engines against the JAX
+package's.
 
-One call sequence runs on `repro.api.LearnedIndex(engine="pallas")` and on
-`repro_torch.api.LearnedIndex(engine="pallas", device="cpu")`; every
-answer must be equal at every step (bit-exact: int64 payloads, bools, and
-f32 keys copied unchanged).
+One call sequence runs on `repro.api.LearnedIndex(engine=...)` and on
+`repro_torch.api.LearnedIndex(engine=..., device="cpu")`; every answer
+must be equal at every step (bit-exact: int64 payloads, bools, and keys
+copied unchanged).  The facade tests run on both ported engines; the
+f32-domain ones (key collisions, int32 payloads, `kernel_eligible`) are
+the `pallas` engine's own.
 """
 import json
 import warnings
@@ -16,13 +19,16 @@ from repro_torch import api as T
 from tests.conftest import make_keys
 
 
-def _cfg(pkg, merge=None, **kw):
+ENGINES = ("pallas", "local")
+
+
+def _cfg(pkg, merge=None, engine="pallas", **kw):
     """`merge`: None (default policy), "manual", or MergePolicy kwargs."""
     if merge == "manual":
         kw["merge"] = pkg.manual_merge_policy()
     elif merge is not None:
         kw["merge"] = pkg.MergePolicy(**merge)
-    return pkg.IndexConfig(engine="pallas", **kw)
+    return pkg.IndexConfig(engine=engine, **kw)
 
 
 def _build(keys, vals=None, **kw):
@@ -66,14 +72,15 @@ def _key_tree(d, prefix=""):
     return out
 
 
-@pytest.fixture(scope="module")
-def pair():
+@pytest.fixture(scope="module", params=ENGINES)
+def pair(request):
     rng = np.random.default_rng(41)
     keys = make_keys("logn", 6000, rng)
     keys = np.unique(keys.astype(np.float32)).astype(np.float64)
     vals = rng.integers(0, 1 << 30, len(keys)).astype(np.int64)
     j, t = _build(keys, vals, merge="manual", overlay_cap=256,
-                  telemetry=True)
+                  telemetry=True, engine=request.param)
+    assert j.engine == t.engine == request.param
     return keys, vals, j, t
 
 
@@ -146,14 +153,15 @@ def test_metrics_key_tree(pair):
     assert mt["retrace"]["traces_since_build"] == 0
 
 
-def test_automatic_merge_triggers():
+@pytest.mark.parametrize("engine", ENGINES)
+def test_automatic_merge_triggers(engine):
     """max_writes and max_fill fire at the same writes on both packages."""
     rng = np.random.default_rng(44)
     keys = np.unique(make_keys("fb", 4000, rng).astype(np.float32)).astype(
         np.float64)
     j, t = _build(keys, merge=dict(max_writes=300, max_fill=0.75,
                                    pressure_check_every=64),
-                  overlay_cap=128)
+                  overlay_cap=128, engine=engine)
     epochs = []
     for step in range(12):
         batch = keys[rng.integers(0, len(keys), 50)]
@@ -206,8 +214,9 @@ def test_rejects_keys_and_payloads_outside_the_kernel_domain():
         assert j.get(k) == t.get(k)
 
 
-def test_config_json_round_trips_across_packages():
-    cfg = J.IndexConfig(engine="pallas", overlay_cap=512, max_hits=32,
+@pytest.mark.parametrize("engine", ENGINES)
+def test_config_json_round_trips_across_packages(engine):
+    cfg = J.IndexConfig(engine=engine, overlay_cap=512, max_hits=32,
                         merge=J.MergePolicy(max_writes=99))
     d = cfg.to_json_dict()
     tcfg = T.IndexConfig.from_json_dict(json.loads(json.dumps(d)))
@@ -218,26 +227,40 @@ def test_config_json_round_trips_across_packages():
 def test_unported_paths_raise():
     keys = np.arange(100, dtype=np.float64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.LearnedIndex.build(keys, device="cpu")             # local engine
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.LearnedIndex.build(keys, config=_cfg(
-            T, maintenance=T.MaintenanceConfig()), device="cpu")
+        T.LearnedIndex.build(keys, engine="sharded", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):   # local, f32
+        T.LearnedIndex.build(keys, dtype=np.float32, device="cpu")
+    for engine in ENGINES:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            T.LearnedIndex.build(keys, config=_cfg(
+                T, maintenance=T.MaintenanceConfig(), engine=engine),
+                device="cpu")
+    # background maintenance on the pallas engine is a config error in
+    # both packages
+    for pkg, kw in ((J, {}), (T, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="background"):
+            pkg.LearnedIndex.build(keys, config=_cfg(
+                pkg, maintenance=pkg.MaintenanceConfig(background=True)),
+                **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.LearnedIndex.build(keys, config=_cfg(
             T, durability=T.DurabilityConfig(dir="unused")), device="cpu")
-    t = T.LearnedIndex.build(keys, config=_cfg(T), device="cpu")
-    for call in (lambda: t.save("x.npz"), t.inspect, t.start_trace):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    for engine in ENGINES:
+        t = T.LearnedIndex.build(keys, config=_cfg(T, engine=engine),
+                                 device="cpu")
+        for call in (lambda: t.save("x.npz"), t.inspect, t.start_trace):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                call()
 
 
-def test_cuda_is_the_default_device(monkeypatch):
+@pytest.mark.parametrize("engine", ENGINES)
+def test_cuda_is_the_default_device(monkeypatch, engine):
     """Without a card, the default device raises instead of dropping to
     the CPU."""
     import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        T.LearnedIndex.build(np.arange(10.0), config=_cfg(T))
+        T.LearnedIndex.build(np.arange(10.0), config=_cfg(T, engine=engine))
 
 
 @pytest.mark.parametrize("helper", ["kernel_arrays", "device_arrays",
@@ -268,10 +291,41 @@ def test_table_helpers_default_to_cuda(helper, monkeypatch):
         call()
 
 
-def test_context_manager_and_close():
+@pytest.mark.parametrize("engine", ENGINES)
+def test_context_manager_and_close(engine):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        with T.LearnedIndex.build(np.arange(50.0), config=_cfg(T),
-                                  device="cpu") as t:
-            assert t.engine == "pallas"
+        with T.LearnedIndex.build(np.arange(50.0), config=_cfg(
+                T, engine=engine), device="cpu") as t:
+            assert t.engine == engine
             assert t.lookup([3.0])[1].all()
+            assert t.kernel_stats["lookups"] == 1
+
+
+def test_default_config_builds_the_local_engine():
+    """`IndexConfig()` builds the local engine in both packages: f64 keys
+    that f32 would merge stay apart, and >= 2^31 payloads round-trip,
+    through writes, an automatic merge and a flush."""
+    keys = 1.0 + np.arange(3000) * 2.0 ** -30      # 2^-30 apart: f32 merges
+    vals = np.arange(3000, dtype=np.int64) + 2 ** 40
+    j = J.LearnedIndex.build(keys, vals)
+    t = T.LearnedIndex.build(keys, vals, device="cpu")
+    assert j.engine == t.engine == "local"
+    v, f = _both(j, t, "lookup", keys)
+    assert f.all() and np.array_equal(v, vals)
+    new = keys[:-1] + 2.0 ** -31
+    for ix in (j, t):
+        for b in range(0, 2998, 1000):              # default policy merges
+            ix.upsert(new[b: b + 1000], np.arange(len(new[b: b + 1000])))
+            ix.delete(keys[b: b + 200])
+    assert t.stats()["merge_reasons"] == j.stats()["merge_reasons"] != {}
+    q = np.concatenate([keys, new])
+    _same(j.lookup(q), t.lookup(q))
+    _stats_equal(j, t)
+    j.flush(), t.flush()
+    _same(j.lookup(q), t.lookup(q))
+    _same(j.items(), t.items())
+    _same(j.range(keys[:100], keys[50:150], max_hits=16),
+          t.range(keys[:100], keys[50:150], max_hits=16))
+    _stats_equal(j, t)
+    assert _key_tree(j.metrics()) == _key_tree(t.metrics())

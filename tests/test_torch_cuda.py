@@ -10,10 +10,12 @@ import pytest
 import torch
 
 from repro_torch.api import IndexConfig, LearnedIndex, manual_merge_policy
+from repro_torch.core.dili import bulk_load
 from repro_torch.core.flat import flatten
 from repro_torch.data.datasets import generate
 from repro_torch.kernels import dili_search as T_kernel
 from repro_torch.kernels import ops as K
+from repro_torch.online.overlay import TombstoneOverlay, overlay_device_arrays
 
 pytestmark = pytest.mark.cuda
 
@@ -106,3 +108,72 @@ def test_facade_on_gpu_matches_cpu(gpu):
             ix.flush()
     assert ixs[1].stats()["kernel_eligible"]
     assert ixs[1].kernel_stats["lookups"] == 2
+
+
+# -- the f64/i64 instance with the overlay resolve (the local engine) -------
+
+
+@pytest.fixture(scope="module", params=["logn", "dili_lo"])
+def f64_case(request):
+    """A 20k-key f64 build (standard, or DILI-LO where every leaf is
+    dense) and an overlay of upserts, tombstones and re-upserts."""
+    rng = np.random.default_rng(11)
+    keys = generate("logn", 20_000, 11)
+    f = flatten(bulk_load(keys, local_optimized=request.param != "dili_lo"))
+    mids = (keys[:-1] + keys[1:]) / 2
+    ov = (TombstoneOverlay.empty(64)
+          .upsert_batch(np.concatenate([keys[:300], mids[:300]]),
+                        np.arange(600) + 2 ** 40)
+          .delete_batch(keys[rng.integers(0, len(keys), 300)])
+          .upsert_batch(keys[1000:1010], np.arange(10)))
+    q = np.concatenate([keys, mids, keys[:777],
+                        [np.inf, -np.inf, np.nan, 1e300, -1e300, 0.0]])
+    return request.param, f, ov, q
+
+
+def test_f64_kernel_matches_plain_version(gpu, f64_case):
+    kind, f, ov, q = f64_case
+    assert bool(f.dense.any()) == (kind == "dili_lo")
+    cpu = K.search_with_overlay(
+        K.kernel_arrays(f, device="cpu", dtype=torch.float64),
+        overlay_device_arrays(ov, device="cpu"), torch.from_numpy(q))
+    before = T_kernel.kernel_f64.launches
+    out = K.search_with_overlay(
+        K.kernel_arrays(f, device=gpu, dtype=torch.float64),
+        overlay_device_arrays(ov, device=gpu), torch.from_numpy(q).to(gpu))
+    torch.cuda.synchronize()
+    assert T_kernel.kernel_f64.launches == before + 1
+    for g, w in zip(out, cpu):
+        assert torch.equal(g.cpu(), w)
+    assert bool(cpu[1][:20_000].sum() > 19_000)
+
+
+def test_local_facade_on_gpu_matches_cpu(gpu):
+    rng = np.random.default_rng(8)
+    keys = generate("fb", 20_000, 8)
+    ixs = [LearnedIndex.build(keys, config=IndexConfig(), device=d)
+           for d in ("cpu", "cuda")]
+    assert ixs[1].engine == "local"
+    q = np.concatenate([keys[rng.integers(0, len(keys), 5000)],
+                        (keys[:-1] + keys[1:])[:3000] / 2])
+    lo, hi = keys[:500], keys[50:550]
+    before = T_kernel.kernel_f64.launches
+    for step in range(4):
+        for ix in ixs:
+            ix.upsert(keys[step * 700: step * 700 + 600] + 0.5,
+                      np.arange(600) + 2 ** 33)
+            ix.delete(keys[step * 700 + 600: step * 700 + 700])
+        (v0, f0), (v1, f1) = (ix.lookup(q) for ix in ixs)
+        assert np.array_equal(f0, f1) and np.array_equal(v0, v1), step
+        r0, r1 = (ix.range(lo, hi, max_hits=64) for ix in ixs)
+        for a, b in zip(r0, r1):
+            assert np.array_equal(a, b), step
+    assert ixs[1].stats()["merge_reasons"] == ixs[0].stats()["merge_reasons"]
+    assert ixs[1].n_merges >= 1
+    for ix in ixs:
+        ix.flush()
+    (v0, f0), (v1, f1) = (ix.lookup(q) for ix in ixs)
+    assert np.array_equal(f0, f1) and np.array_equal(v0, v1)
+    for a, b in zip(ixs[0].items(), ixs[1].items()):
+        assert np.array_equal(a, b)
+    assert T_kernel.kernel_f64.launches == before + 5

@@ -399,3 +399,157 @@ def test_packed_records_match_columns(source, cached, syn):
     np.testing.assert_array_equal(cols["tag"].numpy(), tag)
     np.testing.assert_array_equal(cols["fo"].numpy(), j["fo"])
     np.testing.assert_array_equal(cols["dense"].numpy(), j["dense"])
+
+
+# ---------------------------------------------------------------------------
+# the f64/i64 instance with the overlay resolve fused in (the local
+# engine's lookup) against the reference's `search_with_overlay`
+# ---------------------------------------------------------------------------
+
+F64_BUILDS = [("logn", False), ("uniform", False), ("fb", False),
+              ("logn", True), ("wikits", True)]
+
+
+def _f64_id(x):
+    return f"{x[0]}-{'lo' if x[1] else 'std'}"
+
+
+@pytest.fixture(scope="module", params=F64_BUILDS, ids=_f64_id)
+def f64_built(request):
+    """A reference f64 build (DILI-LO with `local_optimized=False`, where
+    every leaf is dense), its snapshot and overlay mirrors in both
+    packages, and the port's f64 kernel tables packed from the same
+    flat."""
+    from repro.core.dili import bulk_load as j_bulk_load
+    from repro.online.overlay import (TombstoneOverlay as JOverlay,
+                                      overlay_device_arrays as j_ov_arrays)
+    from repro_torch.online.overlay import (TombstoneOverlay as TOverlay,
+                                            overlay_device_arrays as
+                                            t_ov_arrays)
+    dist, lo = request.param
+    rng = np.random.default_rng(27)
+    keys = make_keys(dist, 8000 if lo else 20000, rng)
+    d = j_bulk_load(keys, local_optimized=not lo)
+    f = flatten(d)
+    assert bool(f.dense.any()) == lo
+    up = keys[rng.integers(0, len(keys), 300)]
+    new = ((keys[:-1] + keys[1:]) / 2)[rng.integers(0, len(keys) - 1, 300)]
+    dead = np.concatenate([keys[rng.integers(0, len(keys), 300)],
+                           new[:20], [keys[-1] * 2]])
+
+    def writes(ov):
+        return (ov.upsert_batch(np.concatenate([up, new]),
+                                np.arange(600) + 2 ** 40)
+                .delete_batch(dead)
+                .upsert_batch(dead[:10], np.arange(10) + 7))
+
+    jov, tov = writes(JOverlay.empty(64)), writes(TOverlay.empty(64))
+    return dict(keys=keys, f=f, up=up, new=new, dead=dead,
+                jidx=J_search.device_arrays(f, jnp.float64),
+                jov=j_ov_arrays(jov, jnp.float64),
+                tov=t_ov_arrays(tov, torch.float64, device="cpu"),
+                tarr=T_ops.kernel_arrays(f, device="cpu",
+                                         dtype=torch.float64))
+
+
+def _f64_queries(b, rng):
+    keys = b["keys"]
+    mids = (keys[:-1] + keys[1:]) / 2
+    return np.concatenate([
+        keys[rng.integers(0, len(keys), 3000)],
+        mids[rng.integers(0, len(mids), 1500)],
+        b["up"], b["new"], b["dead"],
+        [np.inf, -np.inf, np.nan, 3e9, -3e9, keys[-1] * 4 + 1e6,
+         keys[0] - 1e6, 0.0, -0.0, keys[0], keys[-1], 1e300]])
+
+
+@pytest.mark.parametrize("early_exit", [False, True])
+@pytest.mark.parametrize("depth_cut", [0, 1])
+def test_f64_overlay_instance_matches_search_with_overlay(
+        f64_built, early_exit, depth_cut):
+    """The f64 instance's plain version (through `ops` and through the
+    wrapper) equals the reference's fused `search_with_overlay` lane for
+    lane, with upserts, tombstones and re-upserted tombstones pending,
+    early exit either way, and at the snapshot's depth and one short."""
+    b = f64_built
+    q = _f64_queries(b, np.random.default_rng(28))
+    md = int(b["f"].max_depth) - depth_cut
+    want = [np.asarray(x) for x in J_search.search_with_overlay(
+        b["jidx"], b["jov"], jnp.asarray(q), md, early_exit=early_exit)]
+    arrs = dict(b["tarr"], max_depth=md)
+    stats = {}
+    got = T_ops.search_with_overlay(arrs, b["tov"], torch.from_numpy(q),
+                                    early_exit=early_exit, stats=stats)
+    assert got[0].dtype == torch.int64 and stats["lanes"] == len(q)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    if depth_cut == 0:
+        assert want[1][:3000].sum() > 2500       # mostly hits
+        # -inf and NaN never hit; +inf meets the overlay's +inf padding,
+        # which the reference reports found with the padding's val 0
+        assert want[1][-12:-9].tolist() == [True, False, False]
+        assert want[0][-12] == 0
+
+
+def test_f64_instance_without_overlay_is_search_batch(f64_built):
+    """No overlay: the snapshot's (val, found), as `search_batch`."""
+    b = f64_built
+    q = _f64_queries(b, np.random.default_rng(29))
+    t = b["tarr"]
+    got = T_kernel.dili_search_f64(t["node_rec"], t["slot_rec"], t["key"],
+                                   torch.from_numpy(q), root=t["root"],
+                                   max_depth=t["max_depth"])
+    want = J_search.search_batch(b["jidx"], jnp.asarray(q))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_f64_pack_tables_round_trip(f64_built):
+    """`pack_tables` at f64: 32-byte node records and 16-byte slot
+    records with the 64-bit sentinels, which `unpack_tables` turns back
+    into the flat's columns."""
+    b = f64_built
+    f, t = b["f"], b["tarr"]
+    nr, sr = t["node_rec"], t["slot_rec"]
+    assert nr.dtype == torch.int64 and tuple(nr.shape) == (f.n_nodes, 4)
+    assert sr.dtype == torch.int64 and tuple(sr.shape) == (f.n_slots, 2)
+    assert nr.element_size() * nr.shape[1] == 32
+    assert sr.element_size() * sr.shape[1] == 16
+    assert t["key"].dtype == torch.float64
+    assert (nr[:, 3] == 0).all()                        # the padding word
+    cols = T_ref.unpack_tables(nr, sr, t["key"])
+    for name in ("a", "b", "base", "fo", "dense", "val"):
+        np.testing.assert_array_equal(cols[name].numpy(),
+                                      np.asarray(getattr(f, name)), name)
+    np.testing.assert_array_equal(cols["key"].numpy().view(np.int64),
+                                  np.asarray(f.key).view(np.int64))
+    np.testing.assert_array_equal(cols["tag"].numpy(), np.asarray(f.tag))
+    kb = sr[:, 0].numpy()
+    assert (kb[np.asarray(f.tag) == TAG_CHILD] == T_ref.CHILD_KEY_BITS_F64).all()
+    assert (kb[np.asarray(f.tag) == TAG_EMPTY] == T_ref.EMPTY_KEY_BITS_F64).all()
+    assert T_ops.column_bytes(t) == (f.n_nodes * 28 + f.n_slots * 20 + 4)
+    assert T_ops.table_bytes(t) == f.n_nodes * 32 + f.n_slots * 24
+
+
+def test_f64_wrapper_rejects_bad_inputs(f64_built):
+    t = f64_built["tarr"]
+    ov = f64_built["tov"]
+    q = torch.from_numpy(f64_built["keys"][:64])
+    recs = [t["node_rec"], t["slot_rec"], t["key"]]
+    kw = dict(root=t["root"], max_depth=t["max_depth"])
+    with pytest.raises(TypeError):                      # f32 queries
+        T_kernel.dili_search_f64(*recs, q.float(), ov=ov, **kw)
+    with pytest.raises(TypeError):                      # f32-width records
+        T_kernel.dili_search_f64(recs[0].view(torch.int32), *recs[1:], q,
+                                 ov=ov, **kw)
+    with pytest.raises(TypeError):                      # f32 key column
+        T_kernel.dili_search_f64(recs[0], recs[1], recs[2].float(), q,
+                                 ov=ov, **kw)
+    with pytest.raises(TypeError):                      # i32 overlay vals
+        T_kernel.dili_search_f64(*recs, q, ov=dict(
+            ov, vals=ov["vals"].int()), **kw)
+    with pytest.raises(ValueError):                     # ragged overlay
+        T_kernel.dili_search_f64(*recs, q, ov=dict(
+            ov, tomb=ov["tomb"][:-1]), **kw)
+    with pytest.raises(TypeError):                      # f64 tables, f32 call
+        T_kernel.dili_search(*recs, q.float(), **kw)
