@@ -42,20 +42,23 @@ def _dtype_name(dtype) -> str:
 class IndexConfig:
     """Configuration for `repro_torch.api.LearnedIndex`.
 
-    engine            : "local" (the default: f64 keys, the f64 kernel
-                        instance with the overlay fused in) and "pallas"
-                        (the f32 kernel engine) run on this port;
+    engine            : "local" (the default: f64 or f32 keys, the
+                        kernel instance with the overlay fused in) and
+                        "pallas" (the f32 kernel engine) run on this port;
                         "sharded" is a valid name that raises
                         NotImplementedError at build.
     dtype             : key/model dtype (numpy or torch); None picks the
                         engine default (f64 for local/sharded, f32 for
-                        pallas); the local engine runs f64 only so far.
+                        pallas).
     pad               : pow2-pad device tables (the reference's shapes).
     merge             : `MergePolicy` deciding when pending writes fold
                         through the host tree (Alg. 7/8).
-    maintenance       : `MaintenanceConfig`; must be None until the
-                        maintenance slice lands (background maintenance
-                        on "pallas" is a ValueError, as in the reference).
+    maintenance       : `MaintenanceConfig` switching the merge to the
+                        adaptive pipeline (splice flatten, retrains,
+                        re-clusters) and, on the local engine only,
+                        background merges (background on "pallas" is a
+                        ValueError, as in the reference).  None = full
+                        flatten merges.
     overlay_cap       : initial tombstone-overlay capacity (doubles).
     sample_stride     : bulk-load sampling stride (Alg. 4, Table 13).
     bulk_kw           : extra `core.dili.bulk_load` kwargs.

@@ -3,21 +3,24 @@
 
 Two of the reference's three engines are ported:
 
-  * `LocalEngine` (`IndexConfig()`'s default): f64 keys and int64
-    payloads over `online.OnlineIndex`'s overlay/merge lifecycle; a
-    lookup is one launch of the f64 instance of the hand-written CUDA
-    kernel (`kernels.ops.search_with_overlay`: walk, dense-leaf probe and
-    overlay resolve), in place of the reference's fused XLA
-    `search_with_overlay`; ranges bisect the epoch's f64 pair table,
-    the one part of the reference's `DeviceSnapshot` the store keeps on
-    the device.
+  * `LocalEngine` (`IndexConfig()`'s default): f64 (or, with
+    `dtype=float32`, f32) keys and int64 payloads over
+    `online.OnlineIndex`'s overlay/merge lifecycle, with the adaptive
+    maintenance pipeline and its background worker when configured; a
+    lookup is one launch of the hand-written CUDA kernel's f64/i64 or
+    f32/i64 instance (`kernels.ops.search_with_overlay`: walk, dense-leaf
+    probe and overlay resolve), in place of the reference's fused XLA
+    `search_with_overlay`; ranges bisect the epoch's pair table, the one
+    part of the reference's `DeviceSnapshot` the store keeps on the
+    device.
   * `KernelEngine`, the counterpart of the reference's `PallasEngine`:
     f32 keys, lookups through the f32 instance of the kernel
     (`kernels.ops.dili_search`, walk and dense-leaf probe in one launch)
     and the pair-table recheck, the tombstone overlay resolved over the
-    kernel's result, ranges bisecting an f32 `DeviceSnapshot`.  Its
-    `name` stays "pallas", so configs and `stats()` read as the
-    reference's.
+    kernel's result, ranges bisecting an f32 `DeviceSnapshot`; with
+    `MaintenanceConfig(background=False)` its merges run the adaptive
+    pipeline on the writer's thread.  Its `name` stays "pallas", so
+    configs and `stats()` read as the reference's.
 
 The sharded engine comes in a later slice (see ROADMAP.md).
 
@@ -38,6 +41,8 @@ from ..core.dili import bulk_load, placement_dtype
 from ..core.flat import flatten, merge_sorted_runs
 from ..device import resolve_device
 from ..kernels import ops as K
+from ..maintain import (IncrementalFlattener, LeafAccounting,
+                        fold_with_accounting, run_reclusters, run_retrains)
 from ..obs import Telemetry
 from ..online.merge import OnlineIndex, adjust_pressure
 from ..online.overlay import (TombstoneOverlay, fold_overlay,
@@ -81,48 +86,125 @@ def _overlay_summary(overlays) -> dict:
 
 
 class EngineTelemetryBase:
-    """Shared `stats()` / `maint_timings()` / `metrics()`: the same key
-    trees as the reference's engines.  Engines provide name, epoch,
-    telemetry, n_flattens, n_merges, n_full_flattens,
-    n_incremental_flattens, n_retrains, last_dirty_frac and the hooks
-    `_stats_extra`, `_stats_overlays`, `_timing_rows`."""
+    """Shared `stats()` / `maint_timings()` / `metrics()` / `inspect()`:
+    the same key trees as the reference's engines, composed from
+    per-engine hooks:
+
+      _stats_extra()      engine-specific keys (snapshot sizing, ...)
+      _stats_overlays()   the overlays summarized for pending writes
+                          (deduped during background merges)
+      _timing_rows()      per-merge wall-time rows (build publish excluded)
+      _queue_depth()      background scheduler depth (0 without one)
+      _maint_error_list() background task failures (empty without one)
+      _inspect_flats(), _inspect_flatteners(), _inspect_accounts()
+                          what `obs.inspect.build_inspect` reads
+
+    Engines also provide name, epoch, telemetry, n_flattens, n_merges,
+    n_full_flattens, n_incremental_flattens, n_retrains and
+    last_dirty_frac."""
 
     telemetry: Telemetry
+
+    #: locality re-cluster count; engines with the maintenance subsystem
+    #: override it
     n_reclusters: int = 0
+
+    def _n_forced_full_flattens(self) -> int:
+        """Unmappable-dirty-id fallbacks across the engine's flatteners."""
+        return 0
 
     def _stats_extra(self) -> dict:
         return {}
 
+    def _queue_depth(self) -> int:
+        return 0
+
+    def _maint_error_list(self) -> list:
+        return []
+
+    def _maint_degraded(self) -> bool:
+        """Background retries exhausted -> merges run synchronously now
+        (only the local engine's scheduler path can degrade)."""
+        return False
+
     def close(self) -> None:
         pass
 
+    _on_publish = None
+
+    def set_on_publish(self, cb) -> None:
+        """Register a post-merge-publish callback (durability checkpoints
+        will ride it).  Runs on whichever thread published."""
+        self._on_publish = cb
+
+    def _notify_publish(self) -> None:
+        if self._on_publish is not None:
+            self._on_publish()
+
     def stats(self) -> dict:
+        errors = self._maint_error_list()
         return dict(engine=self.name, epoch=self.epoch,
                     **self._stats_extra(),
                     **_overlay_summary(self._stats_overlays()),
                     n_flattens=self.n_flattens, n_merges=self.n_merges,
-                    # the maintenance slice of the reference's stats()
-                    # (no accounting, scheduler or splice flattener yet)
+                    # the maintenance slice: flatten kinds, retrains and
+                    # re-clusters, the last merge's dirty-row fraction, the
+                    # background queue, and full re-flattens forced by an
+                    # unmappable dirty id
                     n_full_flattens=self.n_full_flattens,
                     n_incremental_flattens=self.n_incremental_flattens,
                     n_retrains=self.n_retrains,
                     n_reclusters=self.n_reclusters,
-                    n_forced_full_flattens=0,
+                    n_forced_full_flattens=self._n_forced_full_flattens(),
                     dirty_row_fraction=self.last_dirty_frac,
-                    maint_queue_depth=0, maint_errors=0,
-                    maint_degraded=False,
-                    maint_error_logs=[],
+                    maint_queue_depth=self._queue_depth(),
+                    maint_errors=len(errors),
+                    maint_degraded=self._maint_degraded(),
+                    maint_error_logs=list(errors),
                     telemetry_enabled=self.telemetry.enabled,
                     ops_total=self.telemetry.ops_total)
 
     def maint_timings(self) -> list[dict]:
-        """Per-merge wall times: merge_s (fold+flatten), publish_s
-        (upload), incremental, dirty_frac."""
+        """Per-merge wall times: merge_s (fold+retrain+flatten),
+        publish_s (upload+flip), incremental, dirty_frac."""
         return self._timing_rows()
 
     def metrics(self) -> dict:
         """The JSON-able telemetry snapshot (`dili.metrics/1`)."""
         return dict(engine=self.name, **self.telemetry.snapshot())
+
+    # -- index-health introspection (obs.inspect) -----------------------------
+
+    def _inspect_flats(self) -> list:
+        """Published FlatDILI snapshot(s)."""
+        raise NotImplementedError
+
+    def _inspect_flatteners(self) -> list:
+        """Live IncrementalFlattener instances ([] = maintenance off)."""
+        return []
+
+    def _inspect_accounts(self) -> list:
+        """Live LeafAccounting instances ([] = accounting off)."""
+        return []
+
+    def inspect(self) -> dict:
+        """The engine-independent `dili.inspect/1` health document; the
+        facade layers the WAL footprint on top."""
+        from ..obs.inspect import build_inspect
+        accounts = []
+        for acct in self._inspect_accounts():
+            accounts.extend(acct.accounts())
+        ov = _overlay_summary(self._stats_overlays())
+        return build_inspect(
+            engine=self.name, epoch=self.epoch,
+            flats=self._inspect_flats(),
+            flatteners=self._inspect_flatteners(),
+            accounts=accounts,
+            overlay=dict(pending=ov["pending_writes"],
+                         live=ov["overlay_live"],
+                         tombstones=ov["overlay_tombstones"],
+                         cap=ov["overlay_cap"],
+                         fill=ov["overlay_fill"]))
 
 
 def _reject_background(cfg: IndexConfig, engine: str) -> None:
@@ -216,10 +298,13 @@ def _overlay_exact_range(entries, lo, hi, max_hits: int, device_range):
 
 class LocalEngine(EngineTelemetryBase):
     """Single-process engine over the online-update lifecycle: writes land
-    in the tombstone overlay, a lookup is ONE launch of the f64 kernel
-    instance (its plain version on a CPU device), merges follow the
-    configured `MergePolicy` (DESIGN.md sections 8-9).  f64 keys only: a
-    float32 `dtype` waits for an <float, int64> kernel instance.
+    in the tombstone overlay, a lookup is ONE launch of the kernel's
+    f64/i64 instance, or its f32/i64 one at `dtype=float32` (their plain
+    version on a CPU device), merges follow the configured `MergePolicy`
+    and `MaintenanceConfig`, background merges included (DESIGN.md
+    sections 8-9 and 12).  At f32, as in the reference, the tree is built
+    and placed in f64 and its tables are then cast to f32, so keys that
+    f32 does not hold exactly may be missed.
 
     `kernel_stats` counts, since build, `lookups` (engine calls) and
     `lanes` (queries sent to the kernel), and gives `table_bytes`, the
@@ -229,11 +314,6 @@ class LocalEngine(EngineTelemetryBase):
 
     def __init__(self, keys: np.ndarray, vals: np.ndarray, cfg: IndexConfig,
                  device="cuda"):
-        if cfg.resolved_dtype != torch.float64:
-            raise NotImplementedError(
-                f"the local engine at dtype={cfg.dtype} is not ported yet "
-                f"(it needs an <float, int64> instance of the lookup "
-                f"kernel); see ROADMAP.md")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.telemetry = Telemetry(enabled=cfg.telemetry)
@@ -253,12 +333,11 @@ class LocalEngine(EngineTelemetryBase):
     def range(self, lo, hi, max_hits):
         oi = self.oi
 
-        def t(x):
-            return torch.from_numpy(np.ascontiguousarray(
-                x, np.float64)).to(self.device)
-
         def device_range(lo_, hi_, fetch):
-            out = S.range_query_batch(oi.store.pairs, t(lo_), t(hi_),
+            dt = oi.store.dtype
+            out = S.range_query_batch(oi.store.pairs,
+                                      S._t(lo_, dt, self.device),
+                                      S._t(hi_, dt, self.device),
                                       max_hits=fetch)
             return tuple(x.cpu().numpy() for x in out)
 
@@ -286,6 +365,28 @@ class LocalEngine(EngineTelemetryBase):
 
     def flush(self):
         self.oi.flush()
+
+    def close(self):
+        self.oi.close()
+
+    def set_on_publish(self, cb) -> None:
+        # the OnlineIndex fires it itself at the end of every merge
+        # pipeline run (writer thread or maintenance worker)
+        self.oi.on_publish = cb
+
+    def _maint_degraded(self) -> bool:
+        return self.oi.maint_degraded
+
+    def _inspect_flats(self) -> list:
+        return [self.oi.store.flat]
+
+    def _inspect_flatteners(self) -> list:
+        fl = self.oi.flattener
+        return [] if fl is None else [fl]
+
+    def _inspect_accounts(self) -> list:
+        acct = self.oi.accounting
+        return [] if acct is None else [acct]
 
     # -- introspection ------------------------------------------------------
 
@@ -318,13 +419,27 @@ class LocalEngine(EngineTelemetryBase):
 
     @property
     def n_full_flattens(self) -> int:
-        return self.oi.n_flattens
+        return self.oi.n_full_flattens
 
-    # every flatten is full and nothing is retrained until the maintenance
-    # slice lands
-    n_incremental_flattens = 0
-    n_retrains = 0
-    last_dirty_frac = 1.0
+    @property
+    def n_incremental_flattens(self) -> int:
+        return self.oi.n_incremental_flattens
+
+    @property
+    def n_retrains(self) -> int:
+        return self.oi.n_retrains
+
+    @property
+    def n_reclusters(self) -> int:
+        return self.oi.n_reclusters
+
+    def _n_forced_full_flattens(self) -> int:
+        fl = self.oi.flattener
+        return 0 if fl is None else fl.n_fallback_full
+
+    @property
+    def last_dirty_frac(self) -> float:
+        return self.oi.last_dirty_frac
 
     def _timing_rows(self) -> list[dict]:
         return [dict(merge_s=st.merge_s, publish_s=st.publish_s,
@@ -337,6 +452,14 @@ class LocalEngine(EngineTelemetryBase):
         oi = self.oi
         pend = oi._merging
         return [oi.overlay] if pend is None else [pend.merged_with(oi.overlay)]
+
+    def _queue_depth(self) -> int:
+        sched = self.oi.scheduler
+        return 0 if sched is None else sched.depth
+
+    def _maint_error_list(self) -> list:
+        sched = self.oi.scheduler
+        return [] if sched is None else list(sched.errors)
 
     def _stats_extra(self) -> dict:
         store = self.oi.store
@@ -366,14 +489,16 @@ class KernelEngine(EngineTelemetryBase):
     def __init__(self, keys: np.ndarray, vals: np.ndarray, cfg: IndexConfig,
                  device="cuda"):
         _reject_background(cfg, self.name)
-        if cfg.maintenance is not None:
-            raise NotImplementedError(
-                "maintenance=MaintenanceConfig(...) is not ported yet; see "
-                "ROADMAP.md (maintain/*)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.telemetry = Telemetry(enabled=cfg.telemetry)
         self.kernel_stats = dict(lookups=0, lanes=0, recheck_changed=0)
+        m = cfg.maintenance
+        self.flattener = (IncrementalFlattener()
+                          if m is not None and m.incremental else None)
+        self.accounting = (LeafAccounting(m)
+                           if m is not None and (m.retrain or m.recluster)
+                           else None)
         k32, v64 = self._quantize(keys, vals)
         with placement_dtype(np.float32):
             self.dili = bulk_load(k32, v64, **cfg.bulk_load_kw())
@@ -385,11 +510,15 @@ class KernelEngine(EngineTelemetryBase):
         self.n_incremental_flattens = 0
         self.n_merges = 0
         self.n_retrains = 0
+        self.n_reclusters = 0
         self.last_dirty_frac = 1.0
         self._timings: list[dict] = []
         self._writes_since_publish = 0
         self._writes_since_pressure = 0
         self._publish()
+
+    def _n_forced_full_flattens(self) -> int:
+        return 0 if self.flattener is None else self.flattener.n_fallback_full
 
     @staticmethod
     def _check_vals_i32(vals: np.ndarray) -> np.ndarray:
@@ -426,13 +555,24 @@ class KernelEngine(EngineTelemetryBase):
 
     def _publish(self, merge_s: float = 0.0):
         t0 = time.perf_counter()
+        fl = self.flattener
         with self.telemetry.span("merge.flatten"):
-            self.flat = flatten(self.dili)
-            self.dili.take_dirty()  # drain (unbounded growth otherwise)
-            self.last_dirty_frac = 1.0
-        self.telemetry.sample_publish(n_segments=self.flat.n_segments,
-                                      dirty_rows=self.flat.n_slots,
-                                      total_rows=self.flat.n_slots)
+            if fl is not None:
+                self.flat = fl.flatten(self.dili, self.dili.take_dirty())
+                incremental = fl.last_incremental
+                self.last_dirty_frac = (fl.last_dirty_rows
+                                        / max(fl.last_total_rows, 1))
+            else:
+                self.flat = flatten(self.dili)
+                self.dili.take_dirty()  # drain (unbounded growth otherwise)
+                incremental = False
+                self.last_dirty_frac = 1.0
+        self.telemetry.sample_publish(
+            n_segments=self.flat.n_segments,
+            dirty_rows=(fl.last_dirty_rows if fl is not None
+                        else self.flat.n_slots),
+            total_rows=(fl.last_total_rows if fl is not None
+                        else self.flat.n_slots))
         merge_s += time.perf_counter() - t0
         t0 = time.perf_counter()
         with self.telemetry.span("merge.publish"):
@@ -443,11 +583,14 @@ class KernelEngine(EngineTelemetryBase):
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         self.n_flattens += 1
-        self.n_full_flattens += 1
+        if incremental:
+            self.n_incremental_flattens += 1
+        else:
+            self.n_full_flattens += 1
         if self.epoch > 0:          # the build publish is not a merge row
             self._timings.append(dict(merge_s=merge_s,
                                       publish_s=time.perf_counter() - t0,
-                                      incremental=False,
+                                      incremental=incremental,
                                       dirty_frac=self.last_dirty_frac))
         self.epoch += 1
 
@@ -551,17 +694,34 @@ class KernelEngine(EngineTelemetryBase):
         if self.overlay.count == 0:
             return
         t0 = time.perf_counter()
-        # the host walk places slots in the same f32 arithmetic the kernel
-        # searches with
+        tel = self.telemetry
+        # the host walk (and any retrain's or split's bulk load) places
+        # slots in the same f32 arithmetic the kernel searches with
         with placement_dtype(np.float32):
-            with self.telemetry.span("merge.fold"):
-                fold_overlay(self.dili, self.overlay)
+            if self.accounting is not None:
+                with tel.span("merge.fold"):
+                    fold_with_accounting(self.dili, self.overlay,
+                                         self.accounting)
+                with tel.span("merge.retrain"):
+                    self.n_retrains += run_retrains(self.dili,
+                                                    self.accounting)
+                with tel.span("merge.recluster"):
+                    r = run_reclusters(self.dili, self.accounting,
+                                       self.flattener)
+                if r:
+                    self.n_reclusters += r
+                    if tel.enabled:
+                        tel.metrics.count("maint.reclusters", r)
+            else:
+                with tel.span("merge.fold"):
+                    fold_overlay(self.dili, self.overlay)
         self.overlay = TombstoneOverlay.empty(self.cfg.overlay_cap)
         self._ov_mirror = None
         self.n_merges += 1
         self._writes_since_publish = 0
         self._writes_since_pressure = 0
         self._publish(merge_s=time.perf_counter() - t0)
+        self._notify_publish()
 
     # -- introspection ------------------------------------------------------
 
@@ -583,6 +743,15 @@ class KernelEngine(EngineTelemetryBase):
 
     def _stats_overlays(self):
         return [self.overlay]
+
+    def _inspect_flats(self) -> list:
+        return [self.flat]
+
+    def _inspect_flatteners(self) -> list:
+        return [] if self.flattener is None else [self.flattener]
+
+    def _inspect_accounts(self) -> list:
+        return [] if self.accounting is None else [self.accounting]
 
     def _stats_extra(self) -> dict:
         return dict(max_depth=self.flat.max_depth,

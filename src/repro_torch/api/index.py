@@ -10,13 +10,17 @@
     ix.delete(dead_keys)               # visible immediately (tombstones)
     ix.flush()                         # fold + republish (Alg. 7/8)
 
-Two engines run: "local" (the default: f64 keys, int64 payloads, one
-launch of the f64 lookup kernel with the overlay resolve fused in) and
-"pallas" (f32 keys through the f32 kernel instance).  The engine runs on
-CUDA unless `build(..., device="cpu")`.  The sharded engine, persistence
-(`save`/`load`), crash recovery and durability, `inspect()` and the
-causal trace export raise NotImplementedError until their slices land
-(see ROADMAP.md).
+Two engines run: "local" (the default: f64 keys, or f32 with
+`dtype=float32`, int64 payloads, one launch of the lookup kernel with the
+overlay resolve fused in, and the adaptive maintenance pipeline with
+background merges when `IndexConfig.maintenance` asks for it) and
+"pallas" (f32 keys through the f32 kernel instance, maintenance on the
+writer's thread).  `inspect()` returns the `dili.inspect/1` document and
+`start_trace`/`dump_trace` export the `dili.trace/1` causal trace.  The
+engine runs on CUDA unless `build(..., device="cpu")`.  The sharded
+engine, durability, persistence (`save`/`load`) and crash recovery
+(`recover`) raise NotImplementedError until their slices land (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,8 +46,10 @@ class LearnedIndex:
     engine's business.
 
     Threading: ONE logical writer — `upsert`, `delete` and `flush`
-    serialize on an internal RLock.  Reads resolve against the current
-    published snapshot plus a functional overlay reference."""
+    serialize on an internal RLock.  Reads (`lookup`/`range`/`get`/
+    `items`) are lock-free: they resolve against the current published
+    snapshot plus a functional overlay reference, which a publish (on the
+    writer's thread or the maintenance worker) swaps atomically."""
 
     def __init__(self, engine, config: IndexConfig):
         self._engine = engine
@@ -62,10 +68,10 @@ class LearnedIndex:
         if overrides:
             cfg = replace(cfg, **overrides)
         if cfg.engine not in ENGINE_CLASSES:
-            raise _not_ported(f"engine={cfg.engine!r}", "the sharded "
-                              "engine")
+            raise _not_ported(f"engine={cfg.engine!r}",
+                              "item 7, the sharded engine")
         if cfg.durability is not None:
-            raise _not_ported("durability", "durability")
+            raise _not_ported("durability", "item 4, durability")
         keys = np.atleast_1d(np.asarray(keys, np.float64))
         if vals is None:
             vals = np.arange(len(keys), dtype=np.int64)
@@ -88,7 +94,7 @@ class LearnedIndex:
 
     @classmethod
     def recover(cls, *args, **kw) -> "LearnedIndex":
-        raise _not_ported("recover", "durability")
+        raise _not_ported("recover", "item 4, durability")
 
     # -- reads ---------------------------------------------------------------
 
@@ -114,7 +120,7 @@ class LearnedIndex:
         if tel.enabled:
             t0 = time.perf_counter()
             v, f = self._engine.lookup(q)
-            tel.record_op("lookup", time.perf_counter() - t0, n)
+            self._record("lookup", tel, t0, n)
         else:
             tel.count_ops(n)
             v, f = self._engine.lookup(q)
@@ -146,7 +152,7 @@ class LearnedIndex:
         if tel.enabled:
             t0 = time.perf_counter()
             ks, vs, cnt = self._engine.range(lo, hi, max_hits)
-            tel.record_op("range", time.perf_counter() - t0, n)
+            self._record("range", tel, t0, n)
         else:
             tel.count_ops(n)
             ks, vs, cnt = self._engine.range(lo, hi, max_hits)
@@ -160,13 +166,24 @@ class LearnedIndex:
 
     # -- writes --------------------------------------------------------------
 
+    @staticmethod
+    def _record(op: str, tel, t0: float, n: int) -> None:
+        """Time an op into the histograms and, while a trace is armed, add
+        its `op.<name>` event on the facade track (not for a flush, whose
+        merge spans the trace already holds, as in the reference)."""
+        dur = time.perf_counter() - t0
+        tel.record_op(op, dur, n)
+        if tel.trace.enabled and op != "flush":
+            tel.trace.add(f"op.{op}", t0=t0, dur_s=dur, track="facade",
+                          n_ops=n)
+
     def _timed_write(self, op: str, n: int, fn, *args) -> None:
         tel = self._engine.telemetry
         with self._write_lock:
             if tel.enabled:
                 t0 = time.perf_counter()
                 fn(*args)
-                tel.record_op(op, time.perf_counter() - t0, n)
+                self._record(op, tel, t0, n)
             else:
                 tel.count_ops(n)
                 fn(*args)
@@ -229,19 +246,37 @@ class LearnedIndex:
         return dict(self._engine.kernel_stats)
 
     def inspect(self) -> dict:
-        raise _not_ported("inspect()", "obs/inspect.py")
+        """The `dili.inspect/1` index-health document: depth and fanout
+        histograms, leaf fill, the per-leaf model prediction error,
+        segment dirty-row and heat blocks, overlay footprint.  Computed
+        from host-side columns (no device sync); the key tree is the
+        reference's on every engine.  Its `wal` block is the unarmed one
+        until durability is ported."""
+        return self._engine.inspect()
 
-    def start_trace(self, *args, **kw) -> None:
-        raise _not_ported("causal trace export", "obs/inspect.py")
+    # -- causal tracing -------------------------------------------------------
 
-    stop_trace = dump_trace = start_trace
+    def start_trace(self) -> None:
+        """Arm causal tracing (requires `config.telemetry`): facade ops and
+        merge spans are collected into a bounded ring, linked to the
+        requests that caused them.  Export with `dump_trace`."""
+        self._engine.telemetry.start_trace()
+
+    def stop_trace(self) -> None:
+        self._engine.telemetry.stop_trace()
+
+    def dump_trace(self, path: str) -> str:
+        """Write the collected trace as Chrome-trace-event JSON
+        (`dili.trace/1`, Perfetto-viewable).  Returns `path`."""
+        return self._engine.telemetry.trace.dump(
+            path, process_name=f"dili:{self.engine}")
 
     def save(self, path: str) -> None:
-        raise _not_ported("save()", "durability")
+        raise _not_ported("save()", "item 4, durability")
 
     @classmethod
     def load(cls, *args, **kw) -> "LearnedIndex":
-        raise _not_ported("load()", "durability")
+        raise _not_ported("load()", "item 4, durability")
 
     @property
     def telemetry(self):

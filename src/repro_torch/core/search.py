@@ -14,7 +14,16 @@ kernel is held against, so they reproduce XLA's arithmetic exactly:
     never `torch.compile`), matching construction's numpy arithmetic;
   * saturating float->int32: XLA saturates (+inf and 3e9 -> 2147483647,
     NaN -> 0) where `tensor.to(torch.int32)` wraps, so `sat_i32` clamps
-    first.  Otherwise +inf pad lanes would land on slot 0.
+    first.  Otherwise +inf pad lanes would land on slot 0;
+  * one exception, the `fused` prediction: the reference's compiled XLA on
+    the CPU contracts `a + b*q` into one fused multiply-add despite its
+    optimization barrier (measured at f32 and f64 with jax 0.9).  Where
+    construction placed the keys in the search's own precision its
+    nudges off integer boundaries make both roundings agree, but the local
+    engine at f32 searches f32 casts of f64-placed tables, and there the
+    reference's answers are the FMA's.  A snapshot dict with
+    `fused=True` (the f32/i64 kernel tables) predicts with `fma_f32`, a
+    correctly rounded f32 FMA.
 
 Every function takes the snapshot as a dict of tensors (see
 `device_arrays`) with `max_depth` / `has_dense` as host statics, or an
@@ -47,13 +56,39 @@ def sat_i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(lo, torch.full_like(out, INT32_MIN), out)
 
 
-def predict_slot(a, b, q, fo):
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            q: torch.Tensor) -> torch.Tensor:
+    """a + b*q in f32 with ONE rounding (to nearest, ties to even), as
+    CUDA's `__fmaf_rn(b, q, a)`.  The product of two f32 values is exact in
+    f64; their sum `s` is rounded once there, with its exact error `e`
+    (TwoSum), so that `s + e` is the exact result.  Rounding `s` to f32
+    is then wrong only where `s` falls exactly halfway between two f32
+    values and `e` pushes the exact result past that midpoint: those lanes
+    take the neighbour on `e`'s side."""
+    a64, p = a.double(), b.double() * q.double()
+    s = a64 + p
+    bb = s - a64
+    e = (a64 - (s - bb)) + (p - bb)
+    r = s.float()
+    r64 = r.double()
+    d = s - r64
+    nb = torch.nextafter(r, torch.where(d > 0, math.inf, -math.inf).float())
+    mid = (d != 0) & (s == (r64 + nb.double()) * 0.5)
+    return torch.where(mid & (e != 0) & ((e > 0) == (d > 0)), nb, r)
+
+
+def predict_slot(a, b, q, fo, fused: bool = False):
     """floor(a + b*q) clipped to [0, fo).
 
     Two IEEE roundings, as construction placed the keys (DESIGN.md
-    section 7): the product and the sum are separate eager ops."""
-    bq = b * q
-    s = a + bq
+    section 7): the product and the sum are separate eager ops.  With
+    `fused` (f32 only), one rounding: `fma_f32` (see the module
+    docstring)."""
+    if fused:
+        s = fma_f32(a, b, q)
+    else:
+        bq = b * q
+        s = a + bq
     return torch.minimum(torch.clamp(sat_i32(torch.floor(s)), min=0),
                          fo - 1)
 
@@ -197,7 +232,7 @@ def _traverse_step(idx: dict, q, state, with_stats: bool):
         fo_s = npk[..., 3].to(torch.int32)
         is_dense = fo_s < 0
         fo = torch.where(is_dense, -fo_s, fo_s)
-        pos = predict_slot(a, b, q, fo)
+        pos = predict_slot(a, b, q, fo, idx.get("fused", False))
         s = (base + pos).long()
         spk = idx["slot_pack"][s]                   # [Q, 2]
         sk = spk[..., 0]
@@ -207,7 +242,7 @@ def _traverse_step(idx: dict, q, state, with_stats: bool):
         b = idx["b"][ni]
         fo = idx["fo"][ni]
         is_dense = idx["dense"][ni] > 0
-        pos = predict_slot(a, b, q, fo)
+        pos = predict_slot(a, b, q, fo, idx.get("fused", False))
         s = (idx["base"][ni] + pos).long()
         t = idx["tag"][s]
         sk = idx["key"][s]
@@ -273,7 +308,8 @@ def search_batch(idx, queries: torch.Tensor, max_depth: int | None = None,
     found.  `max_depth=None` derives the trip count from the snapshot;
     `early_exit=True` stops the batch once every lane is done (bit-identical
     results); `with_stats` also returns per-query (nodes_visited,
-    slot_probes).  A snapshot without `has_dense` runs the dense probe."""
+    slot_probes).  A snapshot without `has_dense` runs the dense probe;
+    one with `fused=True` predicts with one rounding (module docstring)."""
     idx = as_snapshot_dict(idx)
     if max_depth is None:
         max_depth = resolve_max_depth(idx)
@@ -293,7 +329,8 @@ def _dense_search(idx: dict, q: torch.Tensor, n: torch.Tensor):
     fo = idx["fo"][ni]
     base = idx["base"][ni]
     m1 = torch.clamp(fo - 1, min=0)
-    pred = torch.minimum(torch.clamp(predict_slot(a, b, q, fo), min=0), m1)
+    pred = torch.minimum(torch.clamp(
+        predict_slot(a, b, q, fo, idx.get("fused", False)), min=0), m1)
 
     def clip(i):
         return torch.minimum(torch.clamp(i, min=0), m1)

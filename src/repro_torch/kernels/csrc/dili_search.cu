@@ -44,7 +44,7 @@
 // stops a phase as soon as the fixed-trip vector code would leave its lane
 // unchanged, which gives the same result.
 //
-// Two instances of one template on the key and payload types:
+// Three instances of one template on the key and payload types:
 //   * f32 keys, i32 payloads (`dili_search_f32_launch`): the `pallas`
 //     engine's kernel, above;
 //   * f64 keys, i64 payloads (`dili_search_f64_launch`): the local engine's
@@ -58,12 +58,27 @@
 //     are 64-bit NaNs.  The prediction is __dadd_rn(a, __dmul_rn(b, q)).
 //     A standard f64 build has no dense leaf, so the walk is the whole
 //     cost, and at 1M keys its tables (about 75 MB) no longer fit the L2.
+//   * f32 keys, i64 payloads (`dili_search_f32_i64_launch`): the local
+//     engine at dtype=float32, which in the reference runs the same
+//     `search_with_overlay` through XLA at f32 with int64 payloads.  The
+//     node record is the f32 instance's 16 bytes; a slot is 16 bytes {f32
+//     key bits, 4 bytes of padding, i64 val}, one v4 load; the sentinels
+//     are the f32 instance's; the overlay epilogue compares f32 keys and
+//     returns i64 vals.  Its prediction is the one exception to the two
+//     roundings: __fmaf_rn(b, q, a), one rounding, because that is what
+//     the reference computes there.  XLA on the CPU contracts a + b*q
+//     into an FMA despite its optimization barrier; where keys were placed
+//     in the search's own precision, construction's nudges off integer
+//     boundaries make both roundings agree, but these tables are f32 casts
+//     of an f64-placed tree, and two roundings would find keys the
+//     reference misses (PERF.md, section 6).
 // The overlay epilogue runs when the caller passes an overlay (length > 0);
-// the f32 entry point passes none.  The kernel allocates nothing and does
+// the f32/i32 entry point passes none.  The kernel allocates nothing and does
 // not synchronise; each C entry point launches on the caller's stream and
 // returns the first CUDA error, or 0.
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -82,6 +97,9 @@ struct KeyTraits<float> {
   __device__ static Bits bits(float k) { return __float_as_uint(k); }
   __device__ static float mul_rn(float x, float y) { return __fmul_rn(x, y); }
   __device__ static float add_rn(float x, float y) { return __fadd_rn(x, y); }
+  __device__ static float fma_rn(float x, float y, float z) {
+    return __fmaf_rn(x, y, z);
+  }
 };
 
 template <>
@@ -93,6 +111,9 @@ struct KeyTraits<double> {
   }
   __device__ static double mul_rn(double x, double y) { return __dmul_rn(x, y); }
   __device__ static double add_rn(double x, double y) { return __dadd_rn(x, y); }
+  __device__ static double fma_rn(double x, double y, double z) {
+    return __fma_rn(x, y, z);
+  }
 };
 
 // node record, 16 bytes at f32 and 32 at f64 (padded); fo < 0 marks a
@@ -104,9 +125,11 @@ struct alignas(16) NodeRec {
 };
 
 // slot record: PAIR -> {key, payload}; CHILD -> {kChildBits, node id};
-// EMPTY -> {quiet NaN, payload}
+// EMPTY -> {quiet NaN, payload}.  Aligned to twice its wider field, so an
+// f32 key with an i64 payload is {key, 4 bytes of padding, val}.
 template <typename Key, typename Val>
-struct alignas(sizeof(Key) + sizeof(Val)) SlotRec {
+struct alignas(2 * (sizeof(Key) > sizeof(Val) ? sizeof(Key) : sizeof(Val)))
+    SlotRec {
   Key key;
   Val val;
 };
@@ -116,6 +139,10 @@ static_assert(sizeof(SlotRec<float, int>) == 8, "slot record is one v2 load");
 static_assert(sizeof(NodeRec<double>) == 32, "node record is two v4 loads");
 static_assert(sizeof(SlotRec<double, long long>) == 16,
               "slot record is one v4 load");
+using SlotRecF32I64 = SlotRec<float, long long>;
+static_assert(sizeof(SlotRecF32I64) == 16 &&
+                  offsetof(SlotRecF32I64, val) == 8,
+              "slot record is {f32 key, pad, i64 val}, one v4 load");
 
 // read-only vector load of a whole record (ld.global.nc.v4 / .v2)
 template <typename T>
@@ -147,25 +174,28 @@ __device__ __forceinline__ int sat_to_i32(Key x) {
   return static_cast<int>(x);
 }
 
-// floor(a + b*q) clipped to [0, fo - 1], two roundings
-template <typename Key>
+// floor(a + b*q) clipped to [0, fo - 1]: two roundings, or one where the
+// instance is Fused (the f32/i64 instance, see the top of the file)
+template <typename Key, bool Fused>
 __device__ __forceinline__ int predict_slot(Key a, Key b, Key q, int fo) {
   using T = KeyTraits<Key>;
+  const Key s = Fused ? T::fma_rn(b, q, a) : T::add_rn(a, T::mul_rn(b, q));
   // floor is the overload of the key's type
-  const int p = sat_to_i32(floor(T::add_rn(a, T::mul_rn(b, q))));
+  const int p = sat_to_i32(floor(s));
   return min(max(p, 0), fo - 1);
 }
 
 // `_dense_search` on one lane: exponential search around the model's
 // prediction, then binary search for the first key >= q, then the PAIR
 // test at that slot.  `nd` is a dense node's record (nd.fo < 0).
-template <typename Key, typename Val>
+template <typename Key, typename Val, bool Fused>
 __device__ __forceinline__ void dense_probe(
     const NodeRec<Key>& nd, const SlotRec<Key, Val>* __restrict__ slots,
     const Key* __restrict__ keys, Key q, Val& out, bool& hit) {
   const int fo = -nd.fo;
   const int m1 = max(fo - 1, 0);
-  const int pred = min(max(predict_slot(nd.a, nd.b, q, fo), 0), m1);
+  const int pred = min(max(predict_slot<Key, Fused>(nd.a, nd.b, q, fo), 0),
+                       m1);
   const Key* leaf = keys + nd.base;
   auto key_at = [&](int i) { return __ldg(leaf + min(max(i, 0), m1)); };
 
@@ -228,7 +258,7 @@ __device__ __forceinline__ void overlay_resolve(
   }
 }
 
-template <typename Key, typename Val>
+template <typename Key, typename Val, bool Fused>
 __global__ void __launch_bounds__(kThreads)
 dili_search_kernel(const NodeRec<Key>* __restrict__ nodes,
                    const SlotRec<Key, Val>* __restrict__ slots,
@@ -253,7 +283,7 @@ dili_search_kernel(const NodeRec<Key>* __restrict__ nodes,
       loaded = true;
     }
     if (nd.fo < 0) break;                     // dense leaf: probe below
-    const int pos = predict_slot(nd.a, nd.b, q, nd.fo);
+    const int pos = predict_slot<Key, Fused>(nd.a, nd.b, q, nd.fo);
     const SlotRec<Key, Val> s = ld_record(slots + nd.base + pos);
     if (T::bits(s.key) == T::kChildBits) {
       n = static_cast<int>(s.val);
@@ -270,20 +300,20 @@ dili_search_kernel(const NodeRec<Key>* __restrict__ nodes,
   // a lane still on its way after max_depth trips is probed if the node it
   // stands on is dense (search_batch's exit does the same)
   if (!loaded) nd = ld_record(nodes + n);
-  if (nd.fo < 0) dense_probe(nd, slots, keys, q, v, hit);
+  if (nd.fo < 0) dense_probe<Key, Val, Fused>(nd, slots, keys, q, v, hit);
   if (ov_n > 0) overlay_resolve(ov_keys, ov_vals, ov_tomb, ov_n, q, v, hit);
   out[i] = v;
   found[i] = hit;
 }
 
-template <typename Key, typename Val>
+template <typename Key, typename Val, bool Fused>
 int launch(const void* nodes, const void* slots, const void* keys, int root,
            const void* queries, long long nq, int max_depth,
            const void* ov_keys, const void* ov_vals, const void* ov_tomb,
            long long ov_n, void* out, void* found, void* stream) {
   if (nq <= 0) return static_cast<int>(cudaSuccess);
   const long long blocks = (nq + kThreads - 1) / kThreads;
-  dili_search_kernel<Key, Val>
+  dili_search_kernel<Key, Val, Fused>
       <<<static_cast<unsigned int>(blocks), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const NodeRec<Key>*>(nodes),
@@ -305,8 +335,9 @@ extern "C" int dili_search_f32_launch(const void* nodes, const void* slots,
                                       const void* queries, long long nq,
                                       int max_depth, void* out, void* found,
                                       void* stream) {
-  return launch<float, int>(nodes, slots, keys, root, queries, nq, max_depth,
-                            nullptr, nullptr, nullptr, 0, out, found, stream);
+  return launch<float, int, false>(nodes, slots, keys, root, queries, nq,
+                                   max_depth, nullptr, nullptr, nullptr, 0,
+                                   out, found, stream);
 }
 
 // f64 keys, i64 payloads, with the overlay resolve fused in when ov_n > 0
@@ -319,7 +350,24 @@ extern "C" int dili_search_f64_launch(const void* nodes, const void* slots,
                                       const void* ov_vals,
                                       const void* ov_tomb, long long ov_n,
                                       void* out, void* found, void* stream) {
-  return launch<double, long long>(nodes, slots, keys, root, queries, nq,
-                                   max_depth, ov_keys, ov_vals, ov_tomb, ov_n,
-                                   out, found, stream);
+  return launch<double, long long, false>(nodes, slots, keys, root,
+                                          queries, nq, max_depth, ov_keys,
+                                          ov_vals, ov_tomb, ov_n, out, found,
+                                          stream);
+}
+
+// f32 keys, i64 payloads, with the overlay resolve fused in when ov_n > 0
+// (the overlay's keys cast to f32): the local engine at dtype=float32
+extern "C" int dili_search_f32_i64_launch(const void* nodes,
+                                          const void* slots,
+                                          const void* keys, int root,
+                                          const void* queries, long long nq,
+                                          int max_depth, const void* ov_keys,
+                                          const void* ov_vals,
+                                          const void* ov_tomb,
+                                          long long ov_n, void* out,
+                                          void* found, void* stream) {
+  return launch<float, long long, true>(nodes, slots, keys, root, queries,
+                                        nq, max_depth, ov_keys, ov_vals,
+                                        ov_tomb, ov_n, out, found, stream);
 }

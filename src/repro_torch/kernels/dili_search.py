@@ -1,18 +1,20 @@
 """Loader and wrappers of the CUDA DILI lookup kernel
 (`csrc/dili_search.cu`), the port of the Pallas kernel in
 `repro/kernels/dili_search.py` together with the XLA recheck of its
-flagged lanes: one launch returns each query's final (val, found).  Two
-instances: `dili_search` (f32 keys, i32 payloads; the `pallas` engine)
-and `dili_search_f64` (f64 keys, i64 payloads, with the overlay resolve
-fused in; the local engine, in place of the reference's XLA
-`core/search.py::search_with_overlay`).
+flagged lanes: one launch returns each query's final (val, found).  Three
+instances: `dili_search` (f32 keys, i32 payloads; the `pallas` engine),
+and, with the overlay resolve fused in, `dili_search_f64` (f64 keys, i64
+payloads) and `dili_search_f32_i64` (f32 keys, i64 payloads): the local
+engine at f64 and at f32, in place of the reference's XLA
+`core/search.py::search_with_overlay`.
 
 Build: at first use on a CUDA tensor, `nvcc` compiles the source for
 `sm_90a` into one shared library with a plain C entry point per
 instance under `kernels/_build/` (listed in .gitignore), named by the
 source's hash so an edited source is rebuilt; a fresh build keeps
-ptxas's register and shared-memory report (both instances) in
-`kernel.ptxas_report`.  The library is loaded
+ptxas's register and shared-memory report (every instance) in
+`kernel.ptxas_report`.  The build holds a lock, so threads that meet an
+unbuilt library at once run nvcc once.  The library is loaded
 with `ctypes` and the kernel launches on PyTorch's current stream.
 Nothing here runs at import time, so the CPU tests import this module on
 machines with no compiler.
@@ -20,7 +22,9 @@ machines with no compiler.
 Dispatch: a CUDA tensor launches the kernel or raises (no `nvcc`, a
 failed build, a refused launch); a CPU tensor runs the plain version
 (`ref.dili_search_ref`, `ref.search_with_overlay_ref`).  There is no
-silent fallback between the two.
+silent fallback between the two.  Launch counters are updated under a
+lock: the local engine's readers and its maintenance worker launch from
+several threads.
 """
 
 from __future__ import annotations
@@ -65,7 +69,7 @@ _F64_ARGS = (_F32_ARGS[:7] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
 
 
 class _Library:
-    """The shared library of `csrc/dili_search.cu` (both instances), built
+    """The shared library of `csrc/dili_search.cu` (every instance), built
     once per process."""
 
     def __init__(self):
@@ -99,7 +103,9 @@ class _Library:
                     if "ptxas info" in ln)
             lib = ctypes.CDLL(str(lib_path))
             for name, argtypes in (("dili_search_f32_launch", _F32_ARGS),
-                                   ("dili_search_f64_launch", _F64_ARGS)):
+                                   ("dili_search_f64_launch", _F64_ARGS),
+                                   ("dili_search_f32_i64_launch",
+                                    _F64_ARGS)):
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -116,12 +122,13 @@ class DiliSearchKernel:
     library) plus its launch counter.  `launches` counts this instance's
     kernel launches only (one per `launch` call that reached the card);
     callers may reset it to 0 to count a window.  `build()` builds the
-    library, which holds both instances.  An empty batch launches
+    library, which holds every instance.  An empty batch launches
     nothing and is not counted."""
 
     def __init__(self, entry: str):
         self.entry = entry
         self.launches = 0
+        self._count_lock = threading.Lock()
 
     @property
     def built(self) -> bool:
@@ -147,35 +154,41 @@ class DiliSearchKernel:
         if err != 0:
             raise RuntimeError(f"{self.entry} failed: CUDA error {err}")
         if queries.numel():           # the entry point returns early on 0
-            self.launches += 1
+            with self._count_lock:
+                self.launches += 1
 
 
 #: the f32/i32 instance (the `pallas` engine's kernel) and the f64/i64
-#: instance with the overlay resolve (the local engine's); their
-#: `launches` are the counters the smoke run reads
+#: and f32/i64 instances with the overlay resolve (the local engine's at
+#: f64 and at f32); their `launches` are the counters the smoke run reads
 kernel = DiliSearchKernel("dili_search_f32_launch")
 kernel_f64 = DiliSearchKernel("dili_search_f64_launch")
+kernel_f32_i64 = DiliSearchKernel("dili_search_f32_i64_launch")
 watchdog.register_jit_provider("kernels.dili_search",
                                lambda: int(kernel.built))
 
-# per key dtype: the records' word dtype (node [n, 4], slot [n, 2]) and
-# the slot record's alignment in bytes (the node record's is 16)
-_RECORDS = {torch.float32: (torch.int32, 8), torch.float64: (torch.int64, 16)}
+# per (key, payload) dtype: the word dtypes of the node records [n, 4]
+# and of the slot records [n, 2], and the slot record's alignment in bytes
+# (the node record's is 16)
+_RECORDS = {(torch.float32, torch.int32): (torch.int32, torch.int32, 8),
+            (torch.float64, torch.int64): (torch.int64, torch.int64, 16),
+            (torch.float32, torch.int64): (torch.int32, torch.int64, 16)}
 
 
 def _check(node_rec: torch.Tensor, slot_rec: torch.Tensor,
            key: torch.Tensor, queries: torch.Tensor, root: int,
-           max_depth: int, key_dtype: torch.dtype) -> None:
+           max_depth: int, key_dtype: torch.dtype,
+           val_dtype: torch.dtype) -> None:
     dev = queries.device
     if queries.dtype != key_dtype or queries.dim() != 1:
         raise TypeError(f"queries must be 1-D {key_dtype}, got "
                         f"{queries.dtype} {tuple(queries.shape)}")
     if not queries.is_contiguous():
         raise ValueError("queries must be contiguous")
-    rec_dtype, slot_align = _RECORDS[key_dtype]
+    node_dtype, slot_dtype, slot_align = _RECORDS[key_dtype, val_dtype]
     for name, t, dtype, width, align in (
-            ("node_rec", node_rec, rec_dtype, 4, 16),
-            ("slot_rec", slot_rec, rec_dtype, 2, slot_align),
+            ("node_rec", node_rec, node_dtype, 4, 16),
+            ("slot_rec", slot_rec, slot_dtype, 2, slot_align),
             ("key", key, key_dtype, None, key_dtype.itemsize)):
         _check_tensor(name, t, dtype, width, align, dev)
     if slot_rec.shape[0] != key.shape[0]:
@@ -202,11 +215,13 @@ def _check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} must be {align}-byte aligned")
 
 
-def _check_overlay(ov: dict, dev: torch.device) -> int:
-    """The overlay mirror's length (its capacity); 1-D f64 keys, i64 vals
-    and i8 tomb of one length on the queries' device."""
+def _check_overlay(ov: dict, dev: torch.device,
+                   key_dtype: torch.dtype) -> int:
+    """The overlay mirror's length (its capacity); 1-D keys of the
+    queries' dtype, i64 vals and i8 tomb of one length on the queries'
+    device."""
     n = ov["keys"].shape[0]
-    for name, dtype, size in (("keys", torch.float64, 8),
+    for name, dtype, size in (("keys", key_dtype, key_dtype.itemsize),
                               ("vals", torch.int64, 8),
                               ("tomb", torch.int8, 1)):
         _check_tensor(f"overlay {name}", ov[name], dtype, None, size, dev)
@@ -229,7 +244,8 @@ def dili_search(node_rec, slot_rec, key, queries, root: int,
     """(vals i32, found bool) for a batch of f32 queries over the kernel
     tables (`ops.pack_tables`); vals is -1 where not found.  CUDA tensors
     launch the kernel; CPU tensors run the plain version."""
-    _check(node_rec, slot_rec, key, queries, root, max_depth, torch.float32)
+    _check(node_rec, slot_rec, key, queries, root, max_depth, torch.float32,
+           torch.int32)
     if _device_type(queries) == "cpu":
         return dili_search_ref(node_rec, slot_rec, key, queries, root,
                                max_depth)
@@ -254,8 +270,28 @@ def dili_search_f64(node_rec, slot_rec, key, queries, root: int,
     the plain version.  `early_exit` changes nothing in the result: the
     plain version stops the batch once every lane is done, and on the card
     each thread stops on its own whatever it says."""
-    _check(node_rec, slot_rec, key, queries, root, max_depth, torch.float64)
-    ov_n = 0 if ov is None else _check_overlay(ov, queries.device)
+    return _with_overlay(kernel_f64, torch.float64, node_rec, slot_rec, key,
+                         queries, root, max_depth, ov, early_exit)
+
+
+def dili_search_f32_i64(node_rec, slot_rec, key, queries, root: int,
+                        max_depth: int, ov: dict | None = None,
+                        early_exit: bool = True):
+    """`dili_search_f64` at f32 keys with i64 payloads: the tables of
+    `ops.pack_tables(..., dtype=torch.float32, val_dtype=torch.int64)`,
+    f32 queries and an overlay mirror with f32 keys
+    (`overlay_device_arrays(ov, torch.float32)`); the local engine at
+    dtype=float32.  CUDA tensors launch the f32/i64 instance."""
+    return _with_overlay(kernel_f32_i64, torch.float32, node_rec, slot_rec,
+                         key, queries, root, max_depth, ov, early_exit)
+
+
+def _with_overlay(kern: DiliSearchKernel, key_dtype: torch.dtype, node_rec,
+                  slot_rec, key, queries, root, max_depth, ov, early_exit):
+    _check(node_rec, slot_rec, key, queries, root, max_depth, key_dtype,
+           torch.int64)
+    ov_n = 0 if ov is None else _check_overlay(ov, queries.device,
+                                               key_dtype)
     if _device_type(queries) == "cpu":
         return search_with_overlay_ref(node_rec, slot_rec, key, queries,
                                        root, max_depth, ov,
@@ -266,8 +302,8 @@ def dili_search_f64(node_rec, slot_rec, key, queries, root: int,
     ov_ptrs = ((0, 0, 0) if ov is None else
                (ov["keys"].data_ptr(), ov["vals"].data_ptr(),
                 ov["tomb"].data_ptr()))
-    kernel_f64.launch(queries, node_rec.data_ptr(), slot_rec.data_ptr(),
-                      key.data_ptr(), int(root), queries.data_ptr(), nq,
-                      int(max_depth), *ov_ptrs, ov_n, out.data_ptr(),
-                      found.data_ptr())
+    kern.launch(queries, node_rec.data_ptr(), slot_rec.data_ptr(),
+                key.data_ptr(), int(root), queries.data_ptr(), nq,
+                int(max_depth), *ov_ptrs, ov_n, out.data_ptr(),
+                found.data_ptr())
     return out, found

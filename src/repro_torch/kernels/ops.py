@@ -34,7 +34,11 @@ the same fields at twice the width: `node_rec` int64 [n_nodes, 4] =
 padding), 32 bytes a node with fo signed as above; `slot_rec` int64 [n_slots, 2] = (key bits, val), with the 64-bit
 sentinels `CHILD_KEY_BITS_F64` and the quiet NaN `EMPTY_KEY_BITS_F64`;
 `key` f64.  Its lookup, `search_with_overlay`, also resolves the
-pending-write overlay in the same launch.
+pending-write overlay in the same launch.  At dtype=float32 the local
+engine keeps int64 payloads (`pack_tables(..., dtype=torch.float32,
+val_dtype=torch.int64)`): `node_rec` is the f32 one, `slot_rec` int64
+[n_slots, 2] = (f32 key bits zero-extended to a word, val), 16 bytes a
+slot, with the f32 sentinels; `key` f32.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from ..core.dili import bulk_load, placement_dtype
 from ..core.flat import TAG_CHILD, TAG_EMPTY, TAG_PAIR, FlatDILI
 from ..device import resolve_device
 from .dili_search import dili_search as dili_search_kernel
-from .dili_search import dili_search_f64
+from .dili_search import dili_search_f32_i64, dili_search_f64
 from .ref import (CHILD_KEY_BITS, CHILD_KEY_BITS_F64, EMPTY_KEY_BITS,
                   EMPTY_KEY_BITS_F64)
 
@@ -64,17 +68,30 @@ def build_f32_index(keys: np.ndarray, vals: np.ndarray | None = None, **kw):
 _KEY_NP = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-def pack_tables(cols: dict, device="cuda", dtype=torch.float32) -> dict:
+_VAL_NP = {torch.int32: np.int32, torch.int64: np.int64}
+
+
+def pack_tables(cols: dict, device="cuda", dtype=torch.float32,
+                val_dtype: torch.dtype | None = None) -> dict:
     """Kernel tables from the column tables `a, b, base, fo, dense, tag,
     key, val, root, max_depth` (numpy arrays or anything `np.asarray`
     takes, e.g. the JAX package's `kernel_arrays`), on CUDA unless `device`
-    says otherwise.  `dtype` is the key type: at float32, models and keys
-    are f32 and payloads int32, as the reference casts them; at float64
-    (the local engine), f64 and int64, with the records twice as wide and
-    the sentinels 64-bit NaNs (see the module docstring)."""
+    says otherwise.  `dtype` is the key type and `val_dtype` the payload
+    type (by default int32 at float32 and int64 at float64): at
+    float32/int32, models and keys are f32 and payloads int32, as the
+    reference's Pallas path casts them; at float64/int64 (the local
+    engine), the records are twice as wide and the sentinels 64-bit NaNs;
+    at float32/int64 (the local engine at f32), the node records are the
+    f32 ones and a slot record is 16 bytes (see the module docstring)."""
     device = resolve_device(device)
-    if dtype not in _KEY_NP:
-        raise TypeError(f"key dtype must be float32 or float64, got {dtype}")
+    if val_dtype is None:
+        val_dtype = torch.int64 if dtype == torch.float64 else torch.int32
+    if (dtype, val_dtype) not in ((torch.float32, torch.int32),
+                                  (torch.float64, torch.int64),
+                                  (torch.float32, torch.int64)):
+        raise TypeError(f"key and payload dtypes must be float32/int32, "
+                        f"float64/int64 or float32/int64, got {dtype}/"
+                        f"{val_dtype}")
     kdt = _KEY_NP[dtype]
     wide = kdt is np.float64
     bits, child, empty = ((np.int64, CHILD_KEY_BITS_F64, EMPTY_KEY_BITS_F64)
@@ -110,6 +127,11 @@ def pack_tables(cols: dict, device="cuda", dtype=torch.float32) -> dict:
     kbits = key.view(bits).copy()
     kbits[(tag == TAG_EMPTY) | ((tag == TAG_PAIR) & np.isnan(key))] = empty
     kbits[tag == TAG_CHILD] = child
+    if not wide and val_dtype == torch.int64:
+        # {f32 key bits, 4 bytes of padding, i64 val}: the key bits are
+        # the word's low half (little-endian), zero-extended
+        val = np.asarray(cols["val"]).astype(np.int64)
+        kbits = kbits.view(np.uint32).astype(np.int64)
     slot_rec = np.stack([kbits, val], axis=1)
 
     def t(x):
@@ -119,15 +141,16 @@ def pack_tables(cols: dict, device="cuda", dtype=torch.float32) -> dict:
                 root=root, max_depth=int(np.asarray(cols["max_depth"])))
 
 
-def kernel_arrays(flat: FlatDILI, device="cuda",
-                  dtype=torch.float32) -> dict:
+def kernel_arrays(flat: FlatDILI, device="cuda", dtype=torch.float32,
+                  val_dtype: torch.dtype | None = None) -> dict:
     """The kernel tables of a flattened snapshot (`pack_tables`) with keys
-    of `dtype`, on CUDA unless `device` says otherwise."""
+    of `dtype` and payloads of `val_dtype`, on CUDA unless `device` says
+    otherwise."""
     return pack_tables(dict(a=flat.a, b=flat.b, base=flat.base, fo=flat.fo,
                             dense=flat.dense, tag=flat.tag, key=flat.key,
                             val=flat.val, root=flat.root,
                             max_depth=flat.max_depth), device=device,
-                       dtype=dtype)
+                       dtype=dtype, val_dtype=val_dtype)
 
 
 def table_bytes(arrs: dict) -> int:
@@ -140,11 +163,12 @@ def column_bytes(arrs: dict) -> int:
     """Bytes of the same tables in the reference's column layout (the
     `table_bytes` that `stats()` reports on the `pallas` engine): a node
     is a, b of the key's width and base, fo, dense of 4 bytes; a slot a
-    4-byte tag, a key and a val of the key's width (int32 vals at f32,
-    int64 at f64); and a 4-byte root."""
+    4-byte tag, a key of the key's width and a val of the payload's
+    (int32 or int64); and a 4-byte root."""
     w = arrs["key"].element_size()
+    vw = arrs["slot_rec"].element_size()
     return (arrs["node_rec"].shape[0] * (2 * w + 12)
-            + arrs["key"].shape[0] * (4 + 2 * w) + 4)
+            + arrs["key"].shape[0] * (4 + w + vw) + 4)
 
 
 def dili_search(arrs: dict, queries: torch.Tensor,
@@ -163,13 +187,16 @@ def dili_search(arrs: dict, queries: torch.Tensor,
 def search_with_overlay(arrs: dict, ov: dict, queries: torch.Tensor, *,
                         early_exit: bool = True,
                         stats: dict | None = None):
-    """The local engine's lookup: (vals i64, found bool) for the f64
-    `queries` over the f64 kernel tables, with the overlay mirror `ov`
-    resolved over the snapshot's result — the reference's
-    `core/search.py::search_with_overlay`, in one launch of the f64
-    instance on the card.  With `stats`, adds this call's lane count to
+    """The local engine's lookup: (vals i64, found bool) for the
+    `queries` over the kernel tables with i64 payloads, with the overlay
+    mirror `ov` resolved over the snapshot's result — the reference's
+    `core/search.py::search_with_overlay`, in one launch of the f64/i64
+    instance (f64 tables) or of the f32/i64 instance (f32 tables) on the
+    card.  With `stats`, adds this call's lane count to
     `stats["lanes"]`."""
-    out, found = dili_search_f64(
+    fn = (dili_search_f64 if arrs["key"].dtype == torch.float64
+          else dili_search_f32_i64)
+    out, found = fn(
         arrs["node_rec"], arrs["slot_rec"], arrs["key"], queries,
         root=arrs["root"], max_depth=arrs["max_depth"], ov=ov,
         early_exit=early_exit)

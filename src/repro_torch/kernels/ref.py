@@ -1,17 +1,17 @@
 """Plain PyTorch version of the DILI lookup kernel (port of
-`repro/kernels/ref.py`, extended by the dense-leaf probe and, for the f64
-instance, the overlay resolve).
+`repro/kernels/ref.py`, extended by the dense-leaf probe and, for the
+instances with i64 payloads, the overlay resolve).
 
 The same function as `csrc/dili_search.cu` on the same tables: decode the
 packed records (`ops.pack_tables`) back into columns and run
 `core/search.py::search_batch`, the Alg. 6 walk with its Alg. 1 dense
-probe, at the given `max_depth`; the f64 instance then runs
-`core/search.py::resolve_overlay` over the overlay mirror, which is the
-reference's `core/search.py::search_with_overlay`.  Mul-then-add slot
+probe, at the given `max_depth`; the f64/i64 and f32/i64 instances then
+run `core/search.py::resolve_overlay` over the overlay mirror, which is
+the reference's `core/search.py::search_with_overlay`.  Mul-then-add slot
 prediction with two roundings, XLA's saturating float->int32 cast.  The
 CPU tests hold it against the JAX package (`kernels/ops.py::dili_search`,
 the Pallas kernel plus its XLA recheck, at f32; `search_with_overlay` at
-f64); on the card the CUDA kernel is held against it.
+f64 and at f32); on the card the CUDA kernel is held against it.
 """
 
 from __future__ import annotations
@@ -34,7 +34,11 @@ def unpack_tables(node_rec, slot_rec, key) -> dict:
     records hold, as `core.search` reads them.  f32 records are int32
     (node [n, 4] = a, b, base, fo; slot [n, 2] = key bits, val); f64
     records are int64 (node [n, 4] = a, b, then base and fo as two int32
-    halves of one word, then padding; slot [n, 2] = key bits, val)."""
+    halves of one word, then padding; slot [n, 2] = key bits, val).  With
+    f32 keys and i64 payloads the node records are the f32 ones and the
+    slot records int64 [n, 2] = (key bits in the low half, val); that
+    instance predicts with one rounding, so its columns carry
+    `fused=True` (see `core/search.py`)."""
     if node_rec.dtype == torch.int64:
         words = node_rec.view(torch.int32)          # [n, 8]
         fdt, child = torch.float64, CHILD_KEY_BITS_F64
@@ -42,14 +46,18 @@ def unpack_tables(node_rec, slot_rec, key) -> dict:
     else:
         fdt, child = torch.float32, CHILD_KEY_BITS
         base, fo_signed = node_rec[:, 2], node_rec[:, 3]
-    kbits = slot_rec[:, 0]
+    fused = slot_rec.dtype != node_rec.dtype
+    if fused:                          # f32 key bits in an int64 word
+        kbits = slot_rec.view(torch.int32)[:, 0]
+    else:
+        kbits = slot_rec[:, 0]
     tag = torch.where(kbits == child, TAG_CHILD,
                       torch.where(torch.isnan(kbits.view(fdt)), TAG_EMPTY,
                                   TAG_PAIR)).to(torch.int32)
     return dict(a=node_rec[:, 0].view(fdt), b=node_rec[:, 1].view(fdt),
                 base=base, fo=fo_signed.abs(),
                 dense=(fo_signed < 0).to(torch.int32), tag=tag, key=key,
-                val=slot_rec[:, 1])
+                val=slot_rec[:, 1], fused=fused)
 
 
 def dili_search_ref(node_rec, slot_rec, key, queries, root: int,

@@ -7,9 +7,21 @@ uploaded into the *back* buffer while epoch N keeps serving from the front
 buffer, then a single reference flip makes N+1 current.  A buffer holds
 everything one epoch's readers need as one tuple: the host `FlatDILI`,
 the padded pair table that ranges bisect (`core.search.pair_arrays`) and
-the f64 kernel tables the lookup kernel reads
-(`kernels.ops.kernel_arrays`).  A reader that captured epoch N mid-batch
-keeps a consistent view after the flip, which only retargets new readers.
+the kernel tables the lookup kernel reads (`kernels.ops.kernel_arrays`,
+keys of the store's dtype, int64 payloads).  A reader that captured
+epoch N mid-batch keeps a consistent view after the flip, which only
+retargets new readers.
+
+Publishes come from the writer's thread or, with background maintenance,
+from the maintenance worker, while reader threads launch lookups.  All of
+them use the device's default stream: the upload is queued there, and
+`torch.cuda.synchronize` waits for it (and for any reader kernel queued
+before it) before the flip.  The previous epoch's tensors stay alive while
+a reader holds its tuple, and the caching allocator hands their memory to
+a later allocation only in that one stream's order, so no kernel reads a
+freed table.  A side stream for the upload would need an event for
+readers to wait on and `record_stream` on the old tables; the single
+stream needs neither.
 
 The reference uploads a whole `DeviceSnapshot` per epoch; here only the
 two tables above live on the device, and `idx` uploads the whole snapshot
@@ -17,7 +29,8 @@ only when asked.  Its shapes, padded to powers of two, are still what
 `EpochStats.retraced` compares (the reference re-traces its compiled
 search when they change) and what `bytes_uploaded` counts
 (`core.search.device_layout`), so both equal the reference's.  Per-epoch
-stats also record overlay fill and merge lag at publish time.
+stats also record overlay fill, merge lag, and the maintenance pipeline's
+flatten kind, dirty fraction and retrains.
 """
 
 from __future__ import annotations
@@ -45,7 +58,8 @@ class EpochStats:
     publish_s: float         # wall time: upload + device synchronize
     retraced: bool           # padded shapes changed vs previous epoch
     merge_s: float = 0.0     # wall time: fold + flatten
-    # the maintenance slice's fields, at their values for a full flatten
+    # maintenance observability (DESIGN.md section 12); defaults describe a
+    # full flatten
     incremental: bool = False  # splice-flatten (vs full flatten())
     dirty_frac: float = 1.0  # slot rows re-materialized / total rows
     n_retrains: int = 0      # subtree rebuilds during this merge
@@ -102,12 +116,15 @@ class SnapshotStore:
     # -- write side ----------------------------------------------------------
 
     def publish(self, flat: FlatDILI, *, overlay_fill: float = 0.0,
-                merge_lag: int = 0, merge_s: float = 0.0) -> EpochStats:
+                merge_lag: int = 0, merge_s: float = 0.0,
+                incremental: bool = False, dirty_frac: float = 1.0,
+                n_retrains: int = 0) -> EpochStats:
         """Upload `flat` into the back buffer, flip, bump the epoch."""
         t0 = time.perf_counter()
         pairs = S.pair_arrays(flat, self.dtype, pad=self.pad,
                               device=self.device)
-        tables = K.kernel_arrays(flat, device=self.device, dtype=self.dtype)
+        tables = K.kernel_arrays(flat, device=self.device, dtype=self.dtype,
+                                 val_dtype=torch.int64)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)     # the upload has landed
         publish_s = time.perf_counter() - t0
@@ -126,6 +143,8 @@ class SnapshotStore:
             n_nodes=flat.n_nodes, n_slots=flat.n_slots,
             bytes_uploaded=S.layout_nbytes(layout),
             overlay_fill=overlay_fill, merge_lag=merge_lag,
-            publish_s=publish_s, retraced=retraced, merge_s=merge_s)
+            publish_s=publish_s, retraced=retraced, merge_s=merge_s,
+            incremental=incremental, dirty_frac=dirty_frac,
+            n_retrains=n_retrains)
         self.history.append(st)
         return st

@@ -6,8 +6,8 @@ overlay is folded through the host DILI with the paper's own machinery —
 upserts via Algorithm 7, tombstones via Algorithm 8 — then ONE `flatten()`
 produces the next epoch's snapshot and `SnapshotStore.publish` flips it in.
 Between merges the read path serves snapshot+overlay fused lookups (one
-launch of the f64 lookup kernel on the card), so results are exact at
-every point in time.
+launch of the lookup kernel's f64/i64 or f32/i64 instance on the card),
+so results are exact at every point in time.
 
 Merge triggers (`OnlineIndex.should_merge`, checked after every write
 batch; the `pallas` engine checks the same ones itself):
@@ -18,14 +18,16 @@ batch; the `pallas` engine checks the same ones itself):
     merging early lets Algorithm 7's adjustment re-spread that region;
   * explicit `flush()`.
 
-Merges run on the writer's thread.  The adaptive maintenance subsystem
-(per-leaf accounting, the splice flattener, the background scheduler and
-its merge retries) waits for its slice: `maintenance=` must be None (see
-ROADMAP.md).
+With a `MaintenanceConfig` the merge runs the adaptive pipeline of
+`repro_torch.maintain` (fold with accounting, retrains, re-clusters, the
+splice flattener), on the writer's thread or, with `background=True`, on
+the `MaintenanceScheduler` worker.
 """
 
 from __future__ import annotations
 
+import random
+import threading
 import time
 from collections import Counter
 from dataclasses import dataclass
@@ -33,11 +35,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core import search as S
 from ..core.dili import DILI, LAMBDA, bulk_load
 from ..core.flat import flatten
 from ..device import resolve_device
 from ..kernels import ops as K
+from ..maintain import (IncrementalFlattener, LeafAccounting,
+                        MaintenanceConfig, MaintenanceScheduler,
+                        fold_with_accounting, run_reclusters, run_retrains)
 from ..obs import NULL_TELEMETRY
+from ..obs.trace_export import current_trace_ids, trace_context
 from .epoch import EpochStats, SnapshotStore
 from .overlay import (LIVE, TOMBSTONE, TombstoneOverlay, fold_overlay,
                       overlay_device_arrays)
@@ -78,36 +85,45 @@ class OnlineIndex:
     """Snapshot + overlay + merge lifecycle behind one read/write API.
 
     Writes land in the (host) tombstone overlay; reads run the fused
-    snapshot+overlay lookup (`kernels.ops.search_with_overlay`: the f64
-    kernel instance on the card, its plain version on the CPU); the merge
-    policy decides when to fold the overlay through the host DILI and
-    publish a fresh epoch.  `flatten()` runs exactly once per merge —
-    never per write.  A merge freezes the overlay under a fresh live one
-    and reads resolve live > frozen > snapshot until the flip, so they
-    stay exact on either side of it; a merge that fails leaves the frozen
-    overlay readable and the next merge reclaims it.
+    snapshot+overlay lookup (`kernels.ops.search_with_overlay`: the
+    kernel's f64/i64 instance, or its f32/i64 one at `dtype=float32`, on
+    the card; its plain version on the CPU); the merge policy decides when
+    to fold the overlay through the host DILI and publish a fresh epoch.
+    `flatten()` runs exactly once per merge — never per write.
+
+    With a `MaintenanceConfig` the merge becomes adaptive (DESIGN.md
+    section 12): folding feeds per-leaf accounting, drifted or
+    tombstone-heavy subtrees are retrained, hot segments are re-clustered,
+    the flatten is the incremental splice (bit-identical to `flatten()`,
+    O(dirty)), and with `background=True` the whole merge runs on a
+    `MaintenanceScheduler` worker so the writer never blocks on a publish.
+    A merge freezes the overlay under a fresh live one and reads resolve
+    live > frozen > snapshot; the frozen overlay is dropped only AFTER the
+    publish flip (re-applying already-folded entries is idempotent), so
+    reads are exact on either side of it.  A merge that fails leaves the
+    frozen overlay readable and the next merge on the writer's thread
+    reclaims it.
 
     Threading contract: ONE writer thread (writes, flush, stats) plus any
-    number of reader threads (`lookup` / `get`).
+    number of reader threads (`lookup` / `get`); the background worker
+    runs one merge at a time.  The worker publishes on the same CUDA
+    stream the readers launch on, so the epoch store's synchronize also
+    waits for their kernels and no kernel can outlive the tables it reads.
 
     `kernel_stats` counts `lookups` (calls) and `lanes` (queries sent to
-    the kernel) since build — port only.
+    the kernel) since build, under a lock (readers run concurrently) —
+    port only.
     """
 
     def __init__(self, keys=None, vals=None, *, dili: DILI | None = None,
                  policy: MergePolicy | None = None, overlay_cap: int = 4096,
                  dtype=torch.float64, pad: bool = True,
-                 early_exit: bool = True, maintenance=None, telemetry=None,
-                 device="cuda", **bulk_kw):
-        if maintenance is not None:
-            raise NotImplementedError(
-                "maintenance=MaintenanceConfig(...) is not ported yet; see "
-                "ROADMAP.md (maintain/*)")
-        if dtype != torch.float64:
-            raise NotImplementedError(
-                f"the local engine runs f64 keys only; dtype={dtype} waits "
-                f"for an <float, int64> instance of the lookup kernel (see "
-                f"ROADMAP.md)")
+                 early_exit: bool = True,
+                 maintenance: MaintenanceConfig | None = None,
+                 telemetry=None, device="cuda", **bulk_kw):
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"the local engine's key dtype is float32 or "
+                            f"float64, got {dtype}")
         self.device = resolve_device(device)
         if dili is None:
             dili = bulk_load(np.asarray(keys, np.float64), vals, **bulk_kw)
@@ -118,7 +134,26 @@ class OnlineIndex:
         self.store = SnapshotStore(dtype=dtype, pad=pad, device=self.device)
         self.overlay = TombstoneOverlay.empty(overlay_cap)
         self._overlay_cap0 = self.overlay.cap
+        # maintenance subsystem (all None => full-flatten merges)
+        self.maint = maintenance
+        m = maintenance
+        self.flattener = (IncrementalFlattener()
+                          if m is not None and m.incremental else None)
+        # accounting carries both the retrain and the re-cluster plan;
+        # re-clustering also needs the incremental flattener (its segment
+        # row counts are the size signal), so without it nothing is planned
+        self.accounting = (LeafAccounting(m)
+                           if m is not None and (m.retrain or m.recluster)
+                           else None)
+        self.scheduler = (MaintenanceScheduler(m.max_queue)
+                          if m is not None and m.background else None)
+        self.on_publish = None         # post-publish hook (durability
+        #                                checkpoints ride it; runs on
+        #                                whichever thread published)
+        self.maint_degraded = False    # background retries exhausted ->
+        #                                merges run synchronously now
         self.kernel_stats = dict(lookups=0, lanes=0)
+        self._stats_lock = threading.Lock()
         self._merging: TombstoneOverlay | None = None   # frozen, folding
         self._merge_failed = False           # frozen needs writer reclaim
         self._ov_cache: tuple | None = None  # (overlay, merging, arrays)
@@ -130,8 +165,13 @@ class OnlineIndex:
         self._leaf_hits: Counter = Counter()    # id(leaf) -> pending writes
         self._leaf_omega: dict[int, int] = {}   # id(leaf) -> omega
         self._unlocated_keys: list[float] = []  # written since last check
-        self.n_flattens = 0            # one full flatten per epoch
+        self.n_flattens = 0
+        self.n_full_flattens = 0
+        self.n_incremental_flattens = 0
         self.n_merges = 0
+        self.n_retrains = 0
+        self.n_reclusters = 0
+        self.last_dirty_frac = 1.0
         self.merge_reasons: Counter = Counter()
         self._publish()
 
@@ -170,8 +210,9 @@ class OnlineIndex:
             return "lag"
         if self._writes_since_pressure >= p.pressure_check_every:
             self._writes_since_pressure = 0
-            # skip the λ-pressure walk while a frozen overlay is pending
-            # (the fill/lag triggers above stay live)
+            # while a merge is folding, the host tree is being mutated by
+            # the worker: skip the λ-pressure walk until it finishes (the
+            # fill/lag triggers above stay live)
             if self._merging is None \
                     and self._incremental_pressure() > p.pressure_lambda:
                 return "pressure"
@@ -196,18 +237,38 @@ class OnlineIndex:
 
     def flush(self) -> EpochStats:
         """Explicit merge+publish; with an empty overlay nothing is folded or
-        republished and the current epoch's stats are returned."""
-        return self.merge("flush")
+        republished and the current epoch's stats are returned.  With
+        background maintenance this is the synchronous barrier: it drains
+        the worker and folds everything pending before returning."""
+        if self.scheduler is None:
+            return self.merge("flush")
+        while True:
+            self.scheduler.drain()
+            if self.overlay.count == 0 and self._merging is None:
+                return self.store.stats
+            n_err = len(self.scheduler.errors)
+            self.merge("flush")
+            self.scheduler.drain()
+            if len(self.scheduler.errors) > n_err and (
+                    self.overlay.count or self._merging is not None):
+                # the retry died too: surface it instead of spinning (the
+                # pending writes stay readable through the overlay chain)
+                raise RuntimeError(
+                    "background merge keeps failing; pending writes "
+                    "retained in the overlay:\n"
+                    + self.scheduler.errors[-1])
 
     def merge(self, reason: str = "explicit") -> EpochStats:
-        """Fold the overlay through the host DILI (Alg. 7/8) and publish."""
+        """Fold the overlay through the host DILI (Alg. 7/8) and publish —
+        inline, or on the maintenance worker when background is on."""
         if self._merging is not None:
             if not self._merge_failed:
                 return self.store.stats   # one merge in flight: coalesce
-            # a previous merge died mid-pipeline: reclaim its frozen writes
-            # into the live overlay, newest entries winning, and retry.
-            # Reads were exact the whole time: the frozen overlay stayed
-            # visible.
+            # a previous merge died mid-pipeline: reclaim its frozen
+            # writes HERE, on the writer thread (the worker must never
+            # assign self.overlay — it races writer assignments), newest
+            # entries winning, and retry below.  Reads were exact the
+            # whole time: the frozen overlay stayed visible.
             self.overlay = self._merging.merged_with(self.overlay)
             self._merging = None
             self._merge_failed = False
@@ -217,9 +278,11 @@ class OnlineIndex:
         self._merging = frozen         # readers: live > frozen > snapshot
         self._frozen_t0 = time.perf_counter()   # -> merge.frozen_dwell
         self.overlay = TombstoneOverlay.empty(self._overlay_cap0)
-        # trigger counters reset at freeze time: the frozen writes are on
-        # their way into the next epoch.  The stale λ-pressure leaf cache
-        # goes with them (the fold invalidates it).
+        # trigger counters reset HERE, on the writer thread, at freeze
+        # time: the frozen writes are on their way into the next epoch,
+        # and the worker must never write these fields (a worker reset
+        # would race the writer's own `+= n`).  The stale λ-pressure leaf
+        # cache goes with them (the fold invalidates it).
         lag = self._writes_since_publish
         self._writes_since_publish = 0
         self._writes_since_pressure = 0
@@ -227,68 +290,146 @@ class OnlineIndex:
         self._leaf_omega = {}
         self._unlocated_keys = []
         t_sub = time.perf_counter()    # -> merge.queue_wait (submit -> start)
-        return self._merge_impl(frozen, reason, lag, t_sub)
+        # causal tracing: the submitting thread's trace context rides to
+        # the worker, so background merge.* spans link back to the
+        # requests whose writes triggered them
+        tids = current_trace_ids()
+        if (self.scheduler is not None and not self.maint_degraded
+                and self.scheduler.submit(
+                    lambda: self._merge_on_worker(frozen, reason, lag,
+                                                  t_sub, tids))):
+            return self.store.stats
+        return self._merge_impl(frozen, reason, lag, t_sub)  # sync/closed
 
-    def _merge_impl(self, frozen: TombstoneOverlay, reason: str, lag: int,
-                    t_sub: float) -> EpochStats:
-        """The merge pipeline, fold -> flatten -> publish, on the writer's
-        thread.  A failure counts `maint.errors`, records a `merge.failed`
-        span on the index's own registry, and leaves the frozen overlay
-        installed (reads stay exact) and flagged for the next merge to
-        reclaim."""
-        t0 = time.perf_counter()
-        try:
-            return self._merge_steps(frozen, reason, lag, t_sub)
-        except BaseException:
-            # failure visibility is unconditional (not gated on `enabled`)
-            # but only on the index's OWN registry — NULL_TELEMETRY is a
-            # shared module global
-            if self.tel is not NULL_TELEMETRY:
-                self.tel.metrics.count("maint.errors")
-                self.tel.spans.record("merge.failed",
-                                      time.perf_counter() - t0,
-                                      reason=reason, attempt=0)
-            self._merge_failed = True
-            raise
+    def _merge_on_worker(self, frozen, reason, lag, t_sub, tids):
+        with trace_context(tids):
+            return self._merge_impl(frozen, reason, lag, t_sub, retry=True)
+
+    def _merge_impl(self, frozen: TombstoneOverlay, reason: str,
+                    lag: int, t_sub: float,
+                    retry: bool = False) -> EpochStats:
+        """The merge pipeline: fold (+accounting) -> retrain -> recluster ->
+        flatten -> publish, on the caller's thread or the worker.
+
+        On the worker (`retry=True`) a failed attempt is retried up to
+        `MaintenanceConfig.max_merge_retries` times with jittered
+        exponential backoff: re-running the pipeline over the same frozen
+        overlay is idempotent (a partly applied fold re-applies
+        last-write-wins), though the dead attempt's counters and spans
+        count twice.  Each failed attempt counts `maint.errors` and records
+        a `merge.failed` span on the index's own registry.
+
+        After the last attempt (or a failure on the writer's thread) the
+        frozen overlay STAYS installed (reads keep resolving it) and is
+        flagged; the next merge on the writer's thread reclaims it into
+        the live overlay (newer wins) and retries.  A worker that runs out
+        of retries also degrades the index to synchronous merges
+        (`maint_degraded`).  The worker never assigns self.overlay or the
+        trigger counters: that would race the writer's own updates."""
+        m = self.maint
+        attempts = 1 + (m.max_merge_retries if retry and m is not None
+                        else 0)
+        for attempt in range(attempts):
+            t0 = time.perf_counter()
+            try:
+                return self._merge_steps(frozen, reason, lag, t_sub)
+            except BaseException:
+                # failure visibility is unconditional (not gated on
+                # `enabled`) but only on the index's OWN registry —
+                # NULL_TELEMETRY is a shared module global
+                if self.tel is not NULL_TELEMETRY:
+                    self.tel.metrics.count("maint.errors")
+                    self.tel.spans.record("merge.failed",
+                                          time.perf_counter() - t0,
+                                          reason=reason, attempt=attempt)
+                if attempt == attempts - 1:
+                    self._merge_failed = True
+                    if retry:
+                        self.maint_degraded = True
+                    raise
+                backoff = m.retry_backoff_s * (2 ** attempt)
+                time.sleep(backoff * (0.5 + random.random()))
+        raise AssertionError("unreachable")
 
     def _merge_steps(self, frozen: TombstoneOverlay, reason: str,
                      lag: int, t_sub: float) -> EpochStats:
         t0 = time.perf_counter()
         self.tel.record_span("merge.queue_wait", t0 - t_sub, reason=reason)
-        with self.tel.span("merge.fold", reason=reason,
-                           pending=frozen.count):
-            fold_overlay(self.dili, frozen)
+        if self.accounting is not None:
+            with self.tel.span("merge.fold", reason=reason,
+                               pending=frozen.count):
+                fold_with_accounting(self.dili, frozen, self.accounting)
+            with self.tel.span("merge.retrain"):
+                retrains = run_retrains(self.dili, self.accounting)
+            with self.tel.span("merge.recluster"):
+                reclusters = run_reclusters(self.dili, self.accounting,
+                                            self.flattener)
+            if reclusters:
+                self.n_reclusters += reclusters
+                if self.tel.enabled:
+                    self.tel.metrics.count("maint.reclusters", reclusters)
+        else:
+            with self.tel.span("merge.fold", reason=reason,
+                               pending=frozen.count):
+                fold_overlay(self.dili, frozen)
+            retrains = 0
         merge_s = time.perf_counter() - t0
         self.n_merges += 1
+        self.n_retrains += retrains
         self.merge_reasons[reason] += 1
         st = self._publish(overlay_fill=frozen.full_fraction,
-                           merge_s=merge_s, merge_lag=lag)
+                           merge_s=merge_s, n_retrains=retrains,
+                           merge_lag=lag)
         # drop the frozen overlay only AFTER the flip: between publish and
         # here readers re-apply already-folded entries — idempotent
         self._merging = None
         self.tel.record_span("merge.frozen_dwell",
                              time.perf_counter() - self._frozen_t0,
                              reason=reason)
+        if self.on_publish is not None:   # durability checkpoints ride here
+            self.on_publish()
         return st
 
     def _publish(self, overlay_fill: float = 0.0, merge_s: float = 0.0,
-                 merge_lag: int = 0) -> EpochStats:
+                 n_retrains: int = 0, merge_lag: int = 0) -> EpochStats:
         t0 = time.perf_counter()
+        fl = self.flattener
         with self.tel.span("merge.flatten"):
-            flat = flatten(self.dili)  # the ONE full flatten per epoch
-            self.dili.take_dirty()     # drain: nothing is dirty vs a fresh
-            #                            full materialization
+            if fl is not None:
+                flat = fl.flatten(self.dili, self.dili.take_dirty())
+                incremental = fl.last_incremental
+                dirty_frac = fl.last_dirty_rows / max(fl.last_total_rows, 1)
+            else:
+                flat = flatten(self.dili)  # the ONE full flatten per epoch
+                self.dili.take_dirty()     # drain: nothing is dirty vs a
+                incremental = False        # fresh full materialization
+                dirty_frac = 1.0
         merge_s += time.perf_counter() - t0
         self.n_flattens += 1
-        self.tel.sample_publish(n_segments=flat.n_segments,
-                                dirty_rows=flat.n_slots,
-                                total_rows=flat.n_slots)
+        if incremental:
+            self.n_incremental_flattens += 1
+        else:
+            self.n_full_flattens += 1
+        self.last_dirty_frac = dirty_frac
+        self.tel.sample_publish(
+            n_segments=flat.n_segments,
+            dirty_rows=fl.last_dirty_rows if fl is not None else flat.n_slots,
+            total_rows=fl.last_total_rows if fl is not None else flat.n_slots)
         with self.tel.span("merge.publish", epoch=self.store.epoch + 1):
             st = self.store.publish(flat, overlay_fill=overlay_fill,
-                                    merge_lag=merge_lag, merge_s=merge_s)
+                                    merge_lag=merge_lag, merge_s=merge_s,
+                                    incremental=incremental,
+                                    dirty_frac=dirty_frac,
+                                    n_retrains=n_retrains)
         if st.retraced and self.tel.enabled:
             self.tel.metrics.count("publish.retraced")
         return st
+
+    def close(self) -> None:
+        """Stop the background worker (if any).  Does NOT flush: pending
+        overlay writes stay readable, they are just no longer folded."""
+        if self.scheduler is not None:
+            self.scheduler.close()
 
     # -- read path -----------------------------------------------------------
 
@@ -309,8 +450,12 @@ class OnlineIndex:
         return mg.merged_with(ov).entries()
 
     def _overlay_arrays(self) -> dict:
-        """The device mirror of the live-over-frozen overlay, cached per
-        (overlay, merging) pair."""
+        """The device mirror of the live-over-frozen overlay (keys of the
+        store's dtype), cached per (overlay, merging) pair.  The writer
+        sets `_merging` before it swaps in a fresh live overlay, and the
+        worker clears it only after the flip, so a pair read with no
+        frozen overlay was read when no merge was in flight or after that
+        merge's flip: a snapshot read afterwards holds its entries."""
         ov, mg = self.overlay, self._merging
         c = self._ov_cache
         if c is not None and c[0] is ov and c[1] is mg:
@@ -323,17 +468,19 @@ class OnlineIndex:
 
     def lookup(self, queries) -> tuple[np.ndarray, np.ndarray]:
         """Batched fused snapshot+overlay lookup -> (vals, found): one
-        launch of the f64 kernel instance on the card (walk, dense probe
-        and overlay resolve), depth-exact (trip count from the snapshot)."""
+        launch of the kernel instance for the store's dtype on the card
+        (walk, dense probe and overlay resolve), depth-exact (trip count
+        from the snapshot)."""
         # overlay BEFORE snapshot (see pending_entries for the ordering)
         ova = self._overlay_arrays()
         tables = self.store.kernel_tables
-        q = torch.from_numpy(np.ascontiguousarray(
-            np.atleast_1d(np.asarray(queries, np.float64)))).to(self.device)
-        st = self.kernel_stats
-        st["lookups"] += 1
+        q = S._t(np.atleast_1d(np.asarray(queries, np.float64)),
+                 self.store.dtype, self.device)
+        with self._stats_lock:
+            self.kernel_stats["lookups"] += 1
+            self.kernel_stats["lanes"] += q.shape[0]
         v, f = K.search_with_overlay(tables, ova, q,
-                                     early_exit=self.early_exit, stats=st)
+                                     early_exit=self.early_exit)
         return v.cpu().numpy(), f.cpu().numpy()
 
     def get(self, key: float) -> int | None:

@@ -177,3 +177,131 @@ def test_local_facade_on_gpu_matches_cpu(gpu):
     for a, b in zip(ixs[0].items(), ixs[1].items()):
         assert np.array_equal(a, b)
     assert T_kernel.kernel_f64.launches == before + 5
+
+
+# -- the f32/i64 instance (the local engine at dtype=float32) ---------------
+
+
+def test_f32_i64_kernel_matches_plain_version(gpu, f64_case):
+    """The same builds placed in f64, as f32/i64 tables with an f32
+    overlay mirror: the f32/i64 instance equals its plain version."""
+    kind, f, ov, q = f64_case
+    q32 = torch.from_numpy(q.astype(np.float32))
+    cpu = K.search_with_overlay(
+        K.kernel_arrays(f, device="cpu", dtype=torch.float32,
+                        val_dtype=torch.int64),
+        overlay_device_arrays(ov, torch.float32, device="cpu"), q32)
+    before = T_kernel.kernel_f32_i64.launches
+    out = K.search_with_overlay(
+        K.kernel_arrays(f, device=gpu, dtype=torch.float32,
+                        val_dtype=torch.int64),
+        overlay_device_arrays(ov, torch.float32, device=gpu), q32.to(gpu))
+    torch.cuda.synchronize()
+    assert T_kernel.kernel_f32_i64.launches == before + 1
+    for g, w in zip(out, cpu):
+        assert torch.equal(g.cpu(), w)
+    assert bool(cpu[1][:20_000].sum() > 15_000)
+
+
+def test_local_facade_at_f32_on_gpu_matches_cpu(gpu):
+    keys = generate("logn", 20_000, 9)
+    ixs = [LearnedIndex.build(keys, dtype=torch.float32, device=d)
+           for d in ("cpu", "cuda")]
+    mids = (keys[:-1] + keys[1:]) / 2
+    before = T_kernel.kernel_f32_i64.launches
+    for step in range(3):
+        for ix in ixs:
+            ix.upsert(mids[step * 1500: (step + 1) * 1500],
+                      np.arange(1500) + 2 ** 35)
+            ix.delete(keys[step * 300: step * 300 + 100])
+        (v0, f0), (v1, f1) = (ix.lookup(np.concatenate([keys, mids]))
+                              for ix in ixs)
+        assert np.array_equal(f0, f1) and np.array_equal(v0, v1), step
+    assert ixs[1].n_merges >= 1
+    assert T_kernel.kernel_f32_i64.launches == before + 3
+
+
+# -- background maintenance and the locked build, with threads ---------------
+
+
+def test_background_merge_with_reader_threads(gpu):
+    """Two reader threads launch lookups on the card while the writer
+    drives background merges (fold, retrain, re-cluster, splice and
+    publish on the worker); every read equals the truth at that moment
+    and the final state after the flush barrier equals the truth."""
+    import threading
+    from repro_torch.api import MaintenanceConfig, MergePolicy
+    rng = np.random.default_rng(12)
+    keys = np.unique(rng.integers(0, 1 << 24, 60_000)).astype(np.float64)
+    vals = np.arange(len(keys), dtype=np.int64)
+    ix = LearnedIndex.build(keys, vals, config=IndexConfig(
+        overlay_cap=1024, merge=MergePolicy(max_writes=2048),
+        maintenance=MaintenanceConfig(background=True)), device=gpu)
+    probe, want = keys[:4096], vals[:4096]
+    stop, failures, overlapped = threading.Event(), [], []
+
+    def reader():
+        while not stop.is_set():
+            overlapped.append(ix._engine.oi._merging is not None)
+            v, f = ix.lookup(probe)
+            if not (f.all() and np.array_equal(v, want)):
+                failures.append("probe diverged")
+                return
+
+    threads = [threading.Thread(target=reader) for _ in range(2)]
+    for th in threads:
+        th.start()
+    truth = dict(zip(keys.tolist(), vals.tolist()))
+    try:
+        for step in range(24):
+            new = keys[4096:][rng.integers(0, len(keys) - 4096, 600)] + 0.5
+            nv = rng.integers(0, 1 << 40, len(new))
+            dead = keys[4096:][rng.integers(0, len(keys) - 4096, 100)]
+            ix.upsert(new, nv)
+            ix.delete(dead)
+            truth.update(zip(new.tolist(), nv.tolist()))
+            for k in dead.tolist():
+                truth.pop(k, None)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    assert failures == [] and any(overlapped)
+    st = ix.flush()
+    assert st["maint_errors"] == 0 and st["n_incremental_flattens"] >= 1
+    tk = np.array(sorted(truth))
+    k, v = ix.items()
+    assert np.array_equal(k, tk)
+    assert np.array_equal(v, np.array([truth[x] for x in tk.tolist()]))
+    vv, ff = ix.lookup(tk)
+    assert ff.all() and np.array_equal(vv, v)
+    ix.close()
+
+
+def test_first_build_is_locked_under_two_threads(gpu, tmp_path,
+                                                 monkeypatch):
+    """Two threads that meet an unbuilt library at once run nvcc once and
+    load the same library."""
+    import subprocess
+    import threading
+    runs = []
+    real = subprocess.run
+
+    def counting_run(cmd, *a, **kw):
+        runs.append(cmd)
+        return real(cmd, *a, **kw)
+
+    monkeypatch.setattr(T_kernel, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(T_kernel.subprocess, "run", counting_run)
+    lib = T_kernel._Library()
+    got = []
+    threads = [threading.Thread(target=lambda: got.append(lib.load()))
+               for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert len(runs) == 1 and len(got) == 2 and got[0] is got[1]
+    assert lib.ptxas_report

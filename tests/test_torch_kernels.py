@@ -553,3 +553,189 @@ def test_f64_wrapper_rejects_bad_inputs(f64_built):
             ov, tomb=ov["tomb"][:-1]), **kw)
     with pytest.raises(TypeError):                      # f64 tables, f32 call
         T_kernel.dili_search(*recs, q.float(), **kw)
+
+
+# ---------------------------------------------------------------------------
+# the f32/i64 instance with the overlay resolve fused in (the local engine
+# at dtype=float32) against the reference's `search_with_overlay` at f32
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=F64_BUILDS, ids=_f64_id)
+def f32_built(request):
+    """A reference build placed in f64 (as the local engine builds at
+    dtype=float32), its f32 snapshot and f32 overlay mirrors in both
+    packages, and the port's f32/i64 kernel tables packed from the same
+    flat."""
+    from repro.core.dili import bulk_load as j_bulk_load
+    from repro.online.overlay import (TombstoneOverlay as JOverlay,
+                                      overlay_device_arrays as j_ov_arrays)
+    from repro_torch.online.overlay import (TombstoneOverlay as TOverlay,
+                                            overlay_device_arrays as
+                                            t_ov_arrays)
+    dist, lo = request.param
+    rng = np.random.default_rng(31)
+    keys = make_keys(dist, 6000 if lo else 20000, rng)
+    d = j_bulk_load(keys, local_optimized=not lo)
+    f = flatten(d)
+    assert bool(f.dense.any()) == lo
+    up = keys[rng.integers(0, len(keys), 300)]
+    new = ((keys[:-1] + keys[1:]) / 2)[rng.integers(0, len(keys) - 1, 300)]
+    dead = np.concatenate([keys[rng.integers(0, len(keys), 300)],
+                           new[:20], [keys[-1] * 2]])
+
+    def writes(ov):
+        return (ov.upsert_batch(np.concatenate([up, new]),
+                                np.arange(600) + 2 ** 40)
+                .delete_batch(dead)
+                .upsert_batch(dead[:10], np.arange(10) + 7))
+
+    jov, tov = writes(JOverlay.empty(64)), writes(TOverlay.empty(64))
+    return dict(keys=keys, f=f, up=up, new=new, dead=dead,
+                jidx=J_search.device_arrays(f, jnp.float32),
+                jov=j_ov_arrays(jov, jnp.float32),
+                tov=t_ov_arrays(tov, torch.float32, device="cpu"),
+                tarr=T_ops.kernel_arrays(f, device="cpu",
+                                         dtype=torch.float32,
+                                         val_dtype=torch.int64))
+
+
+@pytest.mark.parametrize("early_exit", [False, True])
+@pytest.mark.parametrize("depth_cut", [0, 1])
+def test_f32_i64_overlay_instance_matches_search_with_overlay(
+        f32_built, early_exit, depth_cut):
+    """The f32/i64 instance's plain version (through `ops`, which picks it
+    from the tables' key dtype) equals the reference's fused
+    `search_with_overlay` at f32 lane for lane — the misses on keys that
+    f32 does not hold exactly included — with upserts, tombstones and
+    re-upserted tombstones pending, early exit either way, and at the
+    snapshot's depth and one short."""
+    b = f32_built
+    with np.errstate(over="ignore"):              # 1e300 -> +inf
+        q = _f64_queries(b, np.random.default_rng(32)).astype(np.float32)
+    md = int(b["f"].max_depth) - depth_cut
+    want = [np.asarray(x) for x in J_search.search_with_overlay(
+        b["jidx"], b["jov"], jnp.asarray(q), md, early_exit=early_exit)]
+    arrs = dict(b["tarr"], max_depth=md)
+    stats = {}
+    got = T_ops.search_with_overlay(arrs, b["tov"], torch.from_numpy(q),
+                                    early_exit=early_exit, stats=stats)
+    assert got[0].dtype == torch.int64 and stats["lanes"] == len(q)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    if depth_cut == 0 and not b["f"].dense.any():
+        # f32 casts of an f64-placed tree: the reference misses some of
+        # the keys, and so must the port
+        assert 1000 < want[1][:3000].sum() < 3000
+
+
+def test_f32_i64_two_roundings_would_disagree(f32_built):
+    """The reason the instance predicts with one rounding: the reference's
+    answers are the fused multiply-add's (walk and dense probe), and on a
+    standard build a two-rounding walk finds keys the reference misses."""
+    from repro_torch.core import search as TS
+    b = f32_built
+    q = b["keys"].astype(np.float32)
+    want = np.asarray(J_search.search_batch(b["jidx"], jnp.asarray(q))[1])
+    t = b["tarr"]
+    cols = T_ref.unpack_tables(t["node_rec"], t["slot_rec"], t["key"])
+    assert cols["fused"]
+    idx = dict(cols, root=torch.tensor(t["root"]),
+               has_dense=bool(b["f"].dense.any()))
+    qt = torch.from_numpy(q)
+    fused = TS.search_batch(idx, qt, max_depth=t["max_depth"])[1].numpy()
+    two = TS.search_batch(dict(idx, fused=False), qt,
+                          max_depth=t["max_depth"])[1].numpy()
+    np.testing.assert_array_equal(fused, want)
+    if not b["f"].dense.any():
+        assert two.sum() > want.sum()
+
+
+def test_f32_i64_pack_tables_round_trip(f32_built):
+    """`pack_tables` at f32 keys with i64 payloads: the f32 instance's
+    16-byte node records and 16-byte slot records {f32 key bits, 4 bytes
+    of padding, i64 val}, which `unpack_tables` turns back into the flat's
+    columns (keys and models cast to f32)."""
+    b = f32_built
+    f, t = b["f"], b["tarr"]
+    nr, sr = t["node_rec"], t["slot_rec"]
+    assert nr.dtype == torch.int32 and tuple(nr.shape) == (f.n_nodes, 4)
+    assert sr.dtype == torch.int64 and tuple(sr.shape) == (f.n_slots, 2)
+    assert sr.element_size() * sr.shape[1] == 16
+    assert t["key"].dtype == torch.float32
+    assert (sr.view(torch.int32)[:, 1] == 0).all()      # the padding
+    cols = T_ref.unpack_tables(nr, sr, t["key"])
+    for name in ("base", "fo", "dense", "val"):
+        np.testing.assert_array_equal(cols[name].numpy(),
+                                      np.asarray(getattr(f, name)), name)
+    for name in ("a", "b"):
+        np.testing.assert_array_equal(
+            cols[name].numpy(), np.asarray(getattr(f, name), np.float32))
+    np.testing.assert_array_equal(cols["key"].numpy().view(np.int32),
+                                  np.asarray(f.key, np.float32).view(
+                                      np.int32))
+    np.testing.assert_array_equal(cols["tag"].numpy(), np.asarray(f.tag))
+    kb = sr.view(torch.int32)[:, 0].numpy()
+    assert (kb[np.asarray(f.tag) == TAG_CHILD] == T_ref.CHILD_KEY_BITS).all()
+    assert (kb[np.asarray(f.tag) == TAG_EMPTY] == T_ref.EMPTY_KEY_BITS).all()
+    assert T_ops.column_bytes(t) == (f.n_nodes * 20 + f.n_slots * 16 + 4)
+    assert T_ops.table_bytes(t) == f.n_nodes * 16 + f.n_slots * 20
+
+
+def test_f32_i64_wrapper_rejects_bad_inputs(f32_built):
+    t = f32_built["tarr"]
+    ov = f32_built["tov"]
+    q = torch.from_numpy(f32_built["keys"][:64].astype(np.float32))
+    recs = [t["node_rec"], t["slot_rec"], t["key"]]
+    kw = dict(root=t["root"], max_depth=t["max_depth"])
+    with pytest.raises(TypeError):                      # f64 queries
+        T_kernel.dili_search_f32_i64(*recs, q.double(), ov=ov, **kw)
+    with pytest.raises(TypeError):                      # i32 slot records
+        T_kernel.dili_search_f32_i64(recs[0], recs[1].view(torch.int32)
+                                     [:, :2].contiguous(), recs[2], q,
+                                     ov=ov, **kw)
+    with pytest.raises(TypeError):                      # f64 overlay keys
+        T_kernel.dili_search_f32_i64(*recs, q, ov=dict(
+            ov, keys=ov["keys"].double()), **kw)
+    with pytest.raises(TypeError):                      # f32/i32 call
+        T_kernel.dili_search(*recs, q, **kw)
+    with pytest.raises(TypeError):                      # f64/i64 call
+        T_kernel.dili_search_f64(*recs, q.double(), ov=ov, **kw)
+    with pytest.raises(TypeError):
+        T_ops.pack_tables(dict(a=[0.0], b=[0.0], base=[0], fo=[1],
+                               dense=[0], tag=[0], key=[0.0], val=[0],
+                               root=0, max_depth=1), device="cpu",
+                          dtype=torch.float64, val_dtype=torch.int32)
+
+
+def test_fma_f32_is_correctly_rounded():
+    """`core.search.fma_f32` rounds a + b*q once, to nearest even: held to
+    exact rational arithmetic on random operands and on constructed
+    double-rounding traps (the exact result just off an f32 midpoint
+    that the f64 sum rounds onto)."""
+    from fractions import Fraction
+    from repro_torch.core.search import fma_f32
+    rng = np.random.default_rng(33)
+    a = rng.uniform(-1e3, 1e3, 3000).astype(np.float32)
+    b = rng.uniform(-1e3, 1e3, 3000).astype(np.float32)
+    q = rng.uniform(-10, 10, 3000).astype(np.float32)
+    # traps: a = 1, b*q = 2^-24 (half an ulp of 1) plus a sliver of
+    # +-2^-60 that f64 loses: the exact result lies just above or below
+    # the midpoint 1 + 2^-24
+    sliver = [(np.float32(1.0), np.float32(2.0 ** -24 + 2.0 ** -47),
+               np.float32(1.0 + s * 2.0 ** -13)) for s in (1, -1)]
+    for x, y, z in sliver:
+        a, b, q = (np.append(a, x), np.append(b, y), np.append(q, z))
+    got = fma_f32(torch.from_numpy(a), torch.from_numpy(b),
+                  torch.from_numpy(q)).numpy()
+    for x, y, z, g in zip(a, b, q, got):
+        exact = Fraction(float(x)) + Fraction(float(y)) * Fraction(float(z))
+        lo = np.float32(float(exact))
+        cands = [np.nextafter(lo, np.float32(-np.inf)), lo,
+                 np.nextafter(lo, np.float32(np.inf))]
+        errs = [abs(Fraction(float(c)) - exact) for c in cands]
+        best = min(errs)
+        want = [c for c, e in zip(cands, errs) if e == best]
+        want = (want[0] if len(want) == 1 else
+                [c for c in want if not (c.view(np.int32) & 1)][0])
+        assert g == want, (x, y, z, g, want)

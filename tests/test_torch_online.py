@@ -445,3 +445,37 @@ def test_failed_merge_keeps_frozen_overlay_readable(rng, monkeypatch):
     assert np.array_equal(v[:5], np.arange(5) + 100)
     for ix in (j, t):
         assert ix.tel.metrics.snapshot()["counters"]["maint.errors"] == 1
+
+
+def test_online_index_at_f32_matches_reference(rng):
+    """`OnlineIndex(dtype=float32)`: the store keeps f32 kernel tables with
+    int64 payloads (the f32/i64 instance's) and the overlay mirror's keys
+    cast to f32, and every lookup and epoch equals the reference's at
+    `jnp.float32`, misses on keys that f32 does not hold exactly included,
+    across writes and merges."""
+    keys = make_keys("logn", 8000, rng)
+    jp, tp = _policy(max_fill=0.5, max_writes=700)
+    j = J.OnlineIndex(keys, policy=jp, dtype=jnp.float32, overlay_cap=256)
+    t = T.OnlineIndex(keys, policy=tp, dtype=torch.float32, overlay_cap=256,
+                      device="cpu")
+    kt = t.store.kernel_tables
+    assert kt["key"].dtype == torch.float32
+    assert kt["slot_rec"].dtype == torch.int64
+    assert kt["node_rec"].dtype == torch.int32
+    _, f = _lookup_both(j, t, keys)
+    assert not f.all()
+    mids = (keys[:-1] + keys[1:]) / 2
+    for b in range(4):
+        new = mids[b * 400: (b + 1) * 400]
+        for ix in (j, t):
+            ix.upsert_batch(new, np.arange(400) + 2 ** 35)
+            ix.delete_batch(keys[b * 90: b * 90 + 30])
+        assert t._overlay_arrays()["keys"].dtype == torch.float32
+        _lookup_both(j, t, np.concatenate([keys, new]))
+        _state_equal(j, t)
+    assert t.n_merges >= 1
+    for ix in (j, t):
+        ix.flush()
+    _state_equal(j, t)
+    _lookup_both(j, t, np.concatenate([keys, mids]))
+    assert t.store.stats.bytes_uploaded == j.store.stats.bytes_uploaded
