@@ -41,7 +41,7 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      torch replay of the kernel, held to the kernel); table bytes, build,
      flatten, merge and flush seconds;
   6. the local main path at f32 (`dtype=torch.float32`) on `--keys` logn
-     keys made exact in f32: lookups in 2^20-query batches, 4096 range
+     keys, at most 250k, made exact in f32: lookups in 2^20-query batches, 4096 range
      queries, writes in batches of 1000 with an automatic merge, flush
      and `items()`.  The reference's f32 arithmetic misses some keys of
      an f64-placed tree, so lookups are held to a numpy model of that
@@ -57,7 +57,19 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      `inspect()`'s `dili.inspect/1` key tree and a `dili.trace/1` export
      with the merge spans; prints per-merge stage times (from the trace),
      dirty fractions, publish seconds, and lookup ms with and without a
-     merge in flight.
+     merge in flight;
+  8. durability on the local engine at `--keys` f64 logn keys with
+     `IndexConfig(telemetry=True, durability=DurabilityConfig(dir=...))`
+     (a fresh temporary directory, removed at the end): YCSB-A in 32
+     batches of 1024 through `WorkloadRunner.run_kill_recover`, every
+     batch held to the oracle, the index abandoned at half the stream
+     and recovered on CUDA, zero divergences; then a 2^20-query lookup
+     through the recovered index held to the oracle, and the port's crash
+     child (tests/test_torch_crash.py) killed at three points and
+     recovered on CUDA; prints the recovery's seconds and spans, the
+     replayed records, the recovery's bulk load, upsert p50/p99, the
+     share of upsert time in `wal.append`, `inspect()["wal"]` and the
+     directory's bytes; the f64 kernel must have launched.
 The last two lines are the kernels JSON object and the `{"ok": true, ...}`
 result.  Needs `torch` with CUDA, `nvcc`, and `nvidia-smi`.
 """
@@ -66,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -80,6 +93,10 @@ BATCH = 1 << 20
 # PERF.md §4) the script took 697 s of its 1200 s limit, and it aims at
 # half of it.
 PALLAS_KEYS = 250_000
+# The local-f32 path is cut the same way since the durable path (two 1M
+# bulk loads) joined: its bit equality with the plain version stays held
+# at the 20k builds.
+LOCAL_F32_KEYS = 250_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM data sheet, non-tensor f32
 F64_FLOPS = 34e12                # H100 SXM data sheet, non-tensor f64
@@ -925,6 +942,191 @@ def maint_path(n_keys: int, seed: int, device, rounds: int = 12) -> dict:
     return out
 
 
+# the port's crash child and its oracle: tests/test_torch_crash.py, which
+# imports no JAX at module level
+CRASH_KIT = ROOT / "tests" / "test_torch_crash.py"
+
+
+def _dir_bytes(d: str) -> tuple:
+    b = n = 0
+    for root, _dirs, files in os.walk(d):
+        for f in files:
+            b += os.path.getsize(os.path.join(root, f))
+            n += 1
+    return b, n
+
+
+def _load_crash_kit():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("torch_crash_kit",
+                                                  CRASH_KIT)
+    kit = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kit)
+    return kit
+
+
+def durable_path(n_keys: int, seed: int, device) -> None:
+    """Durability on the local engine: build f64 logn keys with
+    `IndexConfig(telemetry=True, durability=DurabilityConfig(dir=<a fresh
+    temporary directory>))` (fsync "interval", a checkpoint after every
+    merge publish, 3 kept; the default merge policy), drive YCSB-A
+    (`generate_stream`, 32768 ops in batches of 1024) through
+    `WorkloadRunner.run_kill_recover`: every batch held to the oracle,
+    the index abandoned at half the stream (no final fsync), recovered on
+    `device`, and the stream finished on the recovered index; then a
+    2^20-query lookup batch through the recovered index held to the
+    oracle, and the port's crash child killed at three points and
+    recovered on `device`.  Any divergence raises."""
+    import json as _json
+    import shutil
+    import tempfile
+    from repro_torch.api import DurabilityConfig, IndexConfig, LearnedIndex
+    from repro_torch.data.datasets import generate
+    from repro_torch.workloads import PRESETS, WorkloadRunner, generate_stream
+    import torch
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed + 5)
+    tk = generate("logn", n_keys, seed)
+    tv = np.arange(len(tk), dtype=np.int64)
+    root = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    try:
+        dur_dir = os.path.join(root, "dur")
+        cfg = IndexConfig(telemetry=True,
+                          durability=DurabilityConfig(dir=dur_dir))
+        # every build of this path (the first, and the one recovery makes
+        # from the checkpoint) is timed, its flatten and upload from the
+        # new index's spans
+        builds = []
+        real_build = LearnedIndex.build.__func__
+
+        def timed_build(cls, *a, **kw):
+            t0 = time.perf_counter()
+            ix = real_build(cls, *a, **kw)
+            total = time.perf_counter() - t0
+            sp = ix.metrics()["spans"]
+            builds.append(dict(
+                n=len(ix.items()[0]), total_s=total,
+                flatten_s=sp["merge.flatten"]["ms_max"] / 1e3,
+                upload_s=sp["merge.publish"]["ms_max"] / 1e3))
+            return ix
+
+        LearnedIndex.build = classmethod(timed_build)
+        try:
+            ix = LearnedIndex.build(tk, tv, config=cfg, device=device)
+            spec = PRESETS["ycsb_a"].scaled(n_ops=32768, batch_size=1024)
+            batches = generate_stream(spec, tk)
+            ops = [b.op for b in batches]
+            print(f"durable: built {len(tk)} f64 keys in "
+                  f"{builds[0]['total_s']:.3f} s with durability armed; "
+                  f"ycsb_a stream of {len(batches)} batches "
+                  f"({ops.count('lookup')} lookup, {ops.count('upsert')} "
+                  f"upsert), killed at batch {len(batches) // 2}",
+                  flush=True)
+            runner = WorkloadRunner(ix)
+            ix.start_trace()
+            out = runner.run_kill_recover(batches, kill_at=len(batches) // 2,
+                                          spec=spec)
+            ix.stop_trace()
+        finally:
+            LearnedIndex.build = classmethod(real_build)
+        rx = runner.index
+        reasons = (ix.stats()["merge_reasons"], rx.stats()["merge_reasons"])
+        if out["n_divergences"] or out["post_recovery_divergences"]:
+            raise AssertionError(f"durable: divergences {out}")
+        if rx.device.type != dev.type or rx.engine != "local":
+            raise AssertionError(f"durable: recovered onto {rx.engine} on "
+                                 f"{rx.device}")
+        m = rx.metrics()
+        rec = {s: m["spans"][f"recovery.{s}"]["ms_max"]
+               for s in ("load", "replay", "publish")}
+        rb = builds[1]
+        rebuild_bulk_s = rb["total_s"] - rb["flatten_s"] - rb["upload_s"]
+        pre, post = out["pre"], out["post"]
+        n_merges_pre, n_merges_post = pre["n_merges"], post["n_merges"]
+        print(f"durable: 0 divergences through {len(batches)} batches "
+              f"(kill at {out['kill_at_batch']}); merges {n_merges_pre} "
+              f"before the kill {reasons[0]}, {n_merges_post} on the "
+              f"recovered index {reasons[1]}; "
+              f"recovery_s {out['recovery_s']:.3f} (load {rec['load']:.1f} "
+              f"ms, replay {rec['replay']:.1f} ms, publish "
+              f"{rec['publish']:.1f} ms), replayed "
+              f"{out['replayed_records']} records; the recovery's build of "
+              f"{rb['n']} keys {rb['total_s']:.3f} s (bulk load "
+              f"{rebuild_bulk_s:.3f} s, flatten {rb['flatten_s']:.3f} s, "
+              f"upload {rb['upload_s']:.3f} s)", flush=True)
+        up_ms = {leg: (o["latency_ms"]["upsert"]["ms_p50"],
+                       o["latency_ms"]["upsert"]["ms_p99"],
+                       o["op_counts"]["upsert"] // spec.batch_size)
+                 for leg, o in (("pre", pre), ("post", post))}
+        trace_path = os.path.join(root, "trace.json")
+        ix.dump_trace(trace_path)
+        with open(trace_path) as fh:
+            doc = _json.load(fh)
+        dur_us = {}
+        for e in doc["traceEvents"]:
+            if e["ph"] == "X":
+                dur_us.setdefault(e["name"], []).append(e["dur"])
+        n_wal, n_up = len(dur_us["wal.append"]), len(dur_us["op.upsert"])
+        if n_wal != n_up:
+            raise AssertionError(f"durable: {n_wal} wal.append events for "
+                                 f"{n_up} upserts")
+        wal_share = sum(dur_us["wal.append"]) / sum(dur_us["op.upsert"])
+        print(f"durable: upsert batch ms p50/p99 before the kill "
+              f"{up_ms['pre'][0]:.3f}/{up_ms['pre'][1]:.3f} "
+              f"({up_ms['pre'][2]} batches), after recovery "
+              f"{up_ms['post'][0]:.3f}/{up_ms['post'][1]:.3f} "
+              f"({up_ms['post'][2]} batches); wal.append share of upsert "
+              f"time {wal_share:.4f} ({n_wal} appends, median "
+              f"{np.median(dur_us['wal.append']) / 1e3:.3f} ms)", flush=True)
+        # the upsert time that no span covers: the checkpoint after each
+        # merge publish, and the overlay write
+        merge_us = sum(sum(dur_us.get(f"merge.{k}", ()))
+                       for k in ("fold", "flatten", "publish"))
+        rest_ms = (sum(dur_us["op.upsert"]) - sum(dur_us["wal.append"])
+                   - merge_us) / 1e3
+        print(f"durable: trace of the first leg, ms (count): "
+              f"{ {k: (round(sum(v) / 1e3, 3), len(v)) for k, v in sorted(dur_us.items())} }; "
+              f"upsert time outside wal.append and merge.fold/flatten/"
+              f"publish {rest_ms:.3f} ms",
+              flush=True)
+
+        # a 2^20-query batch through the recovered index, held to the oracle
+        ok, ov = runner.oracle.items()
+        q = next(lookup_batches(ok, rng, 1))
+        rx.lookup(q)
+        lookup_s = [check_lookup(rx, ok, ov, q, "durable recovered",
+                                 f32=False) for _ in range(5)]
+        lookup_ms = float(np.median(lookup_s)) * 1e3
+        wal_doc = rx.inspect()["wal"]
+        if not wal_doc["armed"]:
+            raise AssertionError("durable: the recovered index's WAL is not "
+                                 "armed")
+        dir_b, dir_n = _dir_bytes(dur_dir)
+        print(f"durable: recovered lookup of 2^20 queries equal to the "
+              f"oracle, median of five {lookup_ms:.4f} ms; inspect wal "
+              f"{wal_doc}; directory {dir_b} B in {dir_n} files",
+              flush=True)
+        rx.close()
+        del ix, rx, runner
+
+        # the port's crash child, killed on the card at three points
+        kit = _load_crash_kit()
+        points = [("wal.append", kit.FLUSH_AFTER_OPS + 3),
+                  ("wal.mid_record", kit.FLUSH_AFTER_OPS + 1),
+                  ("ckpt.mid_publish", 2)]
+        t0 = time.perf_counter()
+        crash = kit.run_matrix("local", os.path.join(root, "crash"),
+                               device=dev.type, points=points)
+        crash_s = time.perf_counter() - t0
+        print(f"durable: crash child killed (-9) at {len(crash)} points and "
+              f"recovered on {dev.type}, items() and kernel lookups "
+              f"equal to the oracle, in {crash_s:.1f} s: "
+              f"{[(r['point'], r['hits'], r['replayed_records']) for r in crash]}",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def make_overlay(keys: np.ndarray, rng, device, n_up: int = 1000,
                  n_dead: int = 600, dtype=None):
     """An overlay mirror of upserts (new keys between neighbours, and
@@ -1062,8 +1264,8 @@ def replay_checked(arrs, q, ov=None, label="timed batch") -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--keys", type=int, default=1_000_000,
-                    help="keys of each main path (the pallas path takes "
-                    "at most 250k)")
+                    help="keys of each main path (the pallas and "
+                    "local-f32 paths take at most 250k)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -1291,7 +1493,8 @@ def main() -> int:
 
     # -- 6. the local main path at f32, counted -------------------------------
     kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
-    ix, tk, tv, info = local_f32_path(args.keys, args.seed, dev)
+    ix, tk, tv, info = local_f32_path(min(args.keys, LOCAL_F32_KEYS),
+                                      args.seed, dev)
     launches_f32l = kernel_f32_i64.launches
     if launches_f32l == 0:
         raise AssertionError("the local f32 path launched the f32/i64 "
@@ -1379,6 +1582,20 @@ def main() -> int:
           f"lookups that overlapped a merge {maint['overlapped']}",
           flush=True)
     entry64["launches"] += launches_maint
+
+    # -- 8. durability: kill and recover on the local engine, counted ---------
+    kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
+    t0 = time.perf_counter()
+    durable_path(args.keys, args.seed, dev)
+    durable_s = time.perf_counter() - t0
+    launches_dur = kernel_f64.launches
+    if launches_dur == 0:
+        raise AssertionError("the durable path launched the f64 kernel no "
+                             "time")
+    print(f"durable: f64 kernel launches {launches_dur} (f32: "
+          f"{kernel.launches}, f32/i64: {kernel_f32_i64.launches}); the "
+          f"path took {durable_s:.1f} s", flush=True)
+    entry64["launches"] += launches_dur
 
     print(card, flush=True)
     print(json.dumps({"kernels": [entry32, entry64, entry32l]}), flush=True)

@@ -70,8 +70,8 @@ class IndexConfig:
     early_exit        : batch-convergence early exit (local engine).
     max_hits          : default per-query range-window bound.
     telemetry         : per-op latency histograms + merge-pipeline spans.
-    durability        : `DurabilityConfig`; must be None until the
-                        durability slice lands.
+    durability        : `DurabilityConfig` arming the WAL + checkpoints
+                        (None = in-memory only; `save()`/`load()`).
     """
 
     engine: str = "local"

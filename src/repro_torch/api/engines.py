@@ -50,9 +50,6 @@ from ..online.overlay import (TombstoneOverlay, fold_overlay,
 from .config import IndexConfig
 from .snapshot import DeviceSnapshot
 
-# WAL record op codes (`repro/durability/wal.py`), for the durability slice
-OP_UPSERT, OP_DELETE = 1, 2
-
 
 # ---------------------------------------------------------------------------
 # shared overlay-exact helpers
@@ -130,11 +127,21 @@ class EngineTelemetryBase:
     def close(self) -> None:
         pass
 
+    # -- durability hooks (DESIGN.md section 14) ------------------------------
+
+    #: shards the WAL fans out over (1 on every ported engine)
+    n_wal_shards: int = 1
+
+    def shard_ids(self, keys: np.ndarray) -> np.ndarray:
+        """WAL shard routing for a write batch (all shard 0 on
+        single-shard engines)."""
+        return np.zeros(len(np.atleast_1d(keys)), np.int64)
+
     _on_publish = None
 
     def set_on_publish(self, cb) -> None:
-        """Register a post-merge-publish callback (durability checkpoints
-        will ride it).  Runs on whichever thread published."""
+        """Register a post-merge-publish callback (the durability manager
+        checkpoints through it).  Runs on whichever thread published."""
         self._on_publish = cb
 
     def _notify_publish(self) -> None:

@@ -224,11 +224,10 @@ def test_config_json_round_trips_across_packages(engine):
     assert J.IndexConfig.from_json_dict(tcfg.to_json_dict()) == cfg
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
     """What is still to come raises NotImplementedError naming ROADMAP:
-    the sharded engine, durability, save/load and recover.  Background
-    maintenance on the pallas engine is a config error in both
-    packages."""
+    the sharded engine.  Background maintenance on the pallas engine is a
+    config error in both packages."""
     keys = np.arange(100, dtype=np.float64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.LearnedIndex.build(keys, engine="sharded", device="cpu")
@@ -237,18 +236,20 @@ def test_unported_paths_raise():
             pkg.LearnedIndex.build(keys, config=_cfg(
                 pkg, maintenance=pkg.MaintenanceConfig(background=True)),
                 **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.LearnedIndex.build(keys, config=_cfg(
-            T, durability=T.DurabilityConfig(dir="unused")), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.LearnedIndex.recover("unused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.LearnedIndex.load("x.npz")
+    # what this list held until the durability slice and runs now:
+    # durability, recover, save and load
+    d = str(tmp_path / "dur")
+    t = T.LearnedIndex.build(keys, config=_cfg(
+        T, durability=T.DurabilityConfig(dir=d)), device="cpu")
+    t.upsert([0.5], [5])
+    t.close()
+    assert T.LearnedIndex.recover(d, device="cpu").get(0.5) == 5
     for engine in ENGINES:
         t = T.LearnedIndex.build(keys, config=_cfg(T, engine=engine),
                                  device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t.save("x.npz")
+        t.save(str(tmp_path / "x.npz"))
+        assert T.LearnedIndex.load(str(tmp_path / "x.npz"),
+                                   device="cpu").engine == engine
     # what this list held before and runs now: the local engine at f32,
     # maintenance on both engines, inspect() and the trace export
     t = T.LearnedIndex.build(keys, dtype=np.float32, device="cpu")

@@ -305,3 +305,45 @@ def test_first_build_is_locked_under_two_threads(gpu, tmp_path,
     assert not any(th.is_alive() for th in threads)
     assert len(runs) == 1 and len(got) == 2 and got[0] is got[1]
     assert lib.ptxas_report
+
+
+def test_durable_abandon_recover_on_gpu(gpu, tmp_path):
+    """A durable build on the card, writes through the WAL, a crash
+    (`abandon`: no final fsync) and `recover` onto the card: lookups
+    through the f64 kernel equal `items()`, which equals the truth."""
+    from repro_torch.api import DurabilityConfig
+    rng = np.random.default_rng(14)
+    keys = np.unique(rng.integers(0, 1 << 24, 30_000)).astype(np.float64)
+    vals = np.arange(len(keys), dtype=np.int64)
+    d = str(tmp_path / "dur")
+    ix = LearnedIndex.build(keys, vals, config=IndexConfig(
+        overlay_cap=1024, durability=DurabilityConfig(dir=d)), device=gpu)
+    truth = dict(zip(keys.tolist(), vals.tolist()))
+    for step in range(6):
+        new = keys[rng.integers(0, len(keys), 900)] + 0.5
+        nv = rng.integers(0, 1 << 40, len(new))
+        dead = keys[rng.integers(0, len(keys), 100)]
+        ix.upsert(new, nv)
+        ix.delete(dead)
+        truth.update(zip(new.tolist(), nv.tolist()))
+        for k in dead.tolist():
+            truth.pop(k, None)
+    assert ix.n_merges >= 1
+    ix.abandon()
+    before = T_kernel.kernel_f64.launches
+    rx = LearnedIndex.recover(d, device=gpu)
+    try:
+        assert rx.device.type == "cuda"
+        assert rx.metrics()["counters"]["recovery.replayed_records"] >= 1
+        tk = np.array(sorted(truth))
+        k, v = rx.items()
+        assert np.array_equal(k, tk)
+        assert np.array_equal(v, np.array([truth[x] for x in tk.tolist()]))
+        q = np.concatenate([tk, keys])
+        vv, ff = rx.lookup(q)
+        assert T_kernel.kernel_f64.launches > before
+        assert ff[: len(tk)].all() and np.array_equal(vv[: len(tk)], v)
+        dead_q = np.setdiff1d(keys, tk)
+        assert not rx.lookup(dead_q)[1].any()
+    finally:
+        rx.close()
