@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--keys 1000000] [--seed 0]
+    python3 chip_smoke.py [--keys 1000000] [--seed 0] [--baseline SRC]
 
 Phases (any failure exits nonzero; nothing falls back to the CPU):
   1. card and build: prints the card's name and power limit, builds the
@@ -33,13 +33,18 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
   5. numbers, per instance: launches during its main path; on one
      2^20-query batch the share of lanes that end at a dense leaf, the L2
      sectors the walk requests under the column layout and under the
-     packed records, kernel ms (warm and cold L2), plain version ms,
-     library ms (`torch.searchsorted` over the pair table, and with an
-     overlay `resolve_overlay`'s over it), whole lookup ms with its
-     device breakdown, and the kernel's bound from the distinct node
-     records, key and val words and overlay words the batch reads (a
-     torch replay of the kernel, held to the kernel); table bytes, build,
-     flatten, merge and flush seconds;
+     packed records (split by tree level, node records against slot
+     records), the kernel's registers and resident blocks per SM, kernel
+     ms warm (CUDA-graph replays of 25 launches, no Python between
+     launches) and with a cold L2, with an overlay also the walk alone,
+     plain version ms, library ms (`torch.searchsorted` over the pair
+     table, and with an overlay `resolve_overlay`'s over it), whole
+     lookup ms with its device breakdown, and the kernel's bound from the
+     distinct node records, key and val words and overlay words the batch
+     reads (a torch replay of the kernel, held to the kernel); table
+     bytes, build, flatten, merge and flush seconds; with `--baseline
+     SRC` (an earlier copy of csrc/dili_search.cu), that kernel's warm
+     and cold ms on the same batch, timed in turns with this one's;
   6. the local main path at f32 (`dtype=torch.float32`) on `--keys` logn
      keys, at most 250k, made exact in f32: lookups in 2^20-query batches, 4096 range
      queries, writes in batches of 1000 with an automatic merge, flush
@@ -186,9 +191,8 @@ def walk_reads(arrs, q, ov=None) -> dict:
     dense probe of every lane that ends at a dense leaf, and with `ov` the
     overlay epilogue's bisection.  Record each load the kernel makes
     (which lanes, which row) and what the function needs of the kernel's
-    own tables: the fields of each node visited (a, b, base and fo, whose
-    sign is the dense flag: 16 bytes at f32, 24 at f64, where the record
-    is padded to 32); of each slot reached, the key word (4 or 8 bytes),
+    own tables: each node visited (`bound_of` counts its fields); of
+    each slot reached, the key word (4 or 8 bytes),
     which also carries the tag, and the `val` word (4 or 8) of a CHILD or
     of a PAIR equal to the query; the key words the probe compares; the
     overlay key words the bisection compares, and the tomb byte and val
@@ -197,8 +201,10 @@ def walk_reads(arrs, q, ov=None) -> dict:
     `key_rows` counts it once.
     Returns the replay's (val, found), the distinct rows of each kind, the
     levels and probes that predict a slot, the lanes that end at a dense
-    leaf, and the L2 sectors the walk requests under both layouts
-    (`sectors`)."""
+    leaf, the L2 sectors the walk requests under both layouts
+    (`sectors`, with the packed records' split by tree level), and per
+    level of the walk its lanes and distinct node and slot records
+    (`levels`)."""
     import torch
     from repro_torch.core.flat import TAG_CHILD, TAG_PAIR
     from repro_torch.core.search import predict_slot
@@ -209,17 +215,18 @@ def walk_reads(arrs, q, ov=None) -> dict:
     hit = torch.zeros(nq, dtype=torch.bool, device=dev)
     rows = {k: [] for k in ("node", "key", "val", "ov_key", "ov_tomb",
                             "ov_val")}
-    loads = []           # (table, lanes, rows[, key read, val read])
+    loads = []           # (table, level, lanes, rows[, key read, val read])
+    per_level = []       # per level: lanes, distinct nodes, distinct slots
 
-    def node_load(lanes, node):
-        loads.append(("node", lanes, node))
+    def node_load(lanes, node, level):
+        loads.append(("node", level, lanes, node))
         rows["node"].append(node)
 
-    def slot_load(lanes, s, qq):
+    def slot_load(lanes, s, qq, level):
         t = c["tag"][s]
         child, is_pair = t == TAG_CHILD, t == TAG_PAIR
         eq = is_pair & (c["key"][s] == qq)
-        loads.append(("slot", lanes, s, is_pair, child | eq))
+        loads.append(("slot", level, lanes, s, is_pair, child | eq))
         rows["key"].append(s)
         rows["val"] += [s[child], s[eq]]
         out[lanes[eq]] = c["val"][s[eq]]
@@ -230,10 +237,11 @@ def walk_reads(arrs, q, ov=None) -> dict:
     node = torch.full((nq,), int(arrs["root"]), dtype=torch.long, device=dev)
     dense_lanes, dense_nodes = [], []
     levels = 0
-    for _ in range(arrs["max_depth"]):
+    for level in range(arrs["max_depth"]):
         if lanes.numel() == 0:
             break
-        node_load(lanes, node)
+        node_load(lanes, node, level)
+        n_lanes, n_nodes = lanes.numel(), torch.unique(node).numel()
         dn = c["dense"][node] > 0
         dense_lanes.append(lanes[dn])
         dense_nodes.append(node[dn])
@@ -242,11 +250,14 @@ def walk_reads(arrs, q, ov=None) -> dict:
         qq = q[lanes]
         pos = predict_slot(c["a"][node], c["b"][node], qq, c["fo"][node],
                            c["fused"])
-        child = slot_load(lanes, (c["base"][node] + pos).long(), qq)
-        node = c["val"][(c["base"][node] + pos).long()].long()
+        slot = (c["base"][node] + pos).long()
+        child = slot_load(lanes, slot, qq, level)
+        per_level.append(dict(lanes=n_lanes, nodes=n_nodes,
+                              slots=torch.unique(slot).numel()))
+        node = c["val"][slot].long()
         lanes, node = lanes[child], node[child]
     if lanes.numel():                 # out of depth: probed if dense
-        node_load(lanes, node)
+        node_load(lanes, node, arrs["max_depth"])
         dn = c["dense"][node] > 0
         dense_lanes.append(lanes[dn])
         dense_nodes.append(node[dn])
@@ -262,7 +273,7 @@ def walk_reads(arrs, q, ov=None) -> dict:
 
     def key_load(mask, i):
         r = (base + torch.minimum(torch.clamp(i, min=0), m1)).long()
-        loads.append(("key", L[mask], r[mask]))
+        loads.append(("key", "probe", L[mask], r[mask]))
         rows["key"].append(r[mask])
         return c["key"][r]
 
@@ -283,7 +294,7 @@ def walk_reads(arrs, q, ov=None) -> dict:
         below = key_load(go, mid) < qq
         lo = torch.where(go & below, mid + 1, lo)
         hi = torch.where(go & ~below, mid, hi)
-    slot_load(L, (base + torch.minimum(lo, m1)).long(), qq)
+    slot_load(L, (base + torch.minimum(lo, m1)).long(), qq, "probe")
 
     if ov is not None:                # the overlay epilogue's bisection
         ok, n = ov["keys"], ov["keys"].numel()
@@ -310,7 +321,7 @@ def walk_reads(arrs, q, ov=None) -> dict:
                 rows={k: int(torch.unique(torch.cat(v)).numel()) if v else 0
                       for k, v in rows.items()},
                 predicts=levels + L.numel(), dense_lanes=L.numel(),
-                sectors=l2_sectors(loads, arrs))
+                sectors=l2_sectors(loads, arrs), levels=per_level)
 
 
 def l2_sectors(loads, arrs) -> dict:
@@ -322,7 +333,9 @@ def l2_sectors(loads, arrs) -> dict:
     the val of a CHILD or hit, of the payload's); `records` reads a node
     as one record and a slot as one record (the kernel's layout: 16 and 8
     bytes at f32/i32, 32 and 16 at f64/i64, 16 and 16 at f32/i64).  Both
-    read the dense probe's keys from the key column."""
+    read the dense probe's keys from the key column.  `by_level` splits
+    the records' sectors by the walk's level (the dense probe's as
+    "probe") into node and slot sectors."""
     import torch
     w = arrs["key"].element_size()
     vw = arrs["slot_rec"].element_size()
@@ -337,21 +350,25 @@ def l2_sectors(loads, arrs) -> dict:
                                 + sector).numel())
 
     cols = recs = 0
+    by_level: dict = {}
     for ld in loads:
-        table, lanes, rows = ld[:3]
+        table, level, lanes, rows = ld[:4]
         if table == "node":
             cols += 2 * count(lanes, rows, w) + 3 * count(lanes, rows, 4)
-            recs += count(lanes, rows, node_b)
+            r = count(lanes, rows, node_b)
         elif table == "slot":
-            key_read, val_read = ld[3], ld[4]
+            key_read, val_read = ld[4], ld[5]
             cols += (count(lanes, rows, 4)
                      + count(lanes[key_read], rows[key_read], w)
                      + count(lanes[val_read], rows[val_read], vw))
-            recs += count(lanes, rows, slot_b)
+            r = count(lanes, rows, slot_b)
         else:
             cols += count(lanes, rows, w)
-            recs += count(lanes, rows, w)
-    return dict(columns=cols, records=recs)
+            r = count(lanes, rows, w)
+        recs += r
+        lv = by_level.setdefault(level, dict(node=0, slot=0, key=0))
+        lv[table] += r
+    return dict(columns=cols, records=recs, by_level=by_level)
 
 
 def bound_of(rp: dict, arrs, nq: int) -> tuple:
@@ -360,12 +377,16 @@ def bound_of(rp: dict, arrs, nq: int) -> tuple:
     batch needs of the tables and the overlay, each byte once (a node's
     fields, not its record's padding); against the operations, a
     multiply and an add per slot prediction (one fused multiply-add at
-    f32/i64 counts as both)."""
+    f32/i64 counts as both).  At f32 a node's fields are a, b, base and
+    fo; at f64 a and b, since a child's base and fo travel in the key and
+    val words of the CHILD slot that names it (counted with the slot),
+    and the root's base and fo once."""
     w = arrs["key"].element_size()
     vw = arrs["slot_rec"].element_size()     # the payload's width
-    node_b = 2 * w + 8                # a, b, and the 4-byte base and fo
     r = rp["rows"]
-    table_read = (node_b * r["node"] + w * r["key"] + vw * r["val"]
+    node_read = (2 * w * r["node"] + 8 if w == 8
+                 else (2 * w + 8) * r["node"])
+    table_read = (node_read + w * r["key"] + vw * r["val"]
                   + w * r["ov_key"] + 8 * r["ov_val"] + r["ov_tomb"])
     moved = nq * (w + vw + 1) + table_read
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
@@ -851,6 +872,10 @@ def maint_path(n_keys: int, seed: int, device, rounds: int = 12) -> dict:
         # in flight: frozen and queued when the lookup starts (whether it
         # still is when the lookup returns is printed too)
         busy = oi._merging is not None and oi.scheduler.depth > 0
+        # the writes pending as this lookup sees them: the frozen overlay
+        # (the zipfian upserts, when they started a merge) under the live
+        mg = oi._merging
+        pending_ov = oi.overlay if mg is None else mg.merged_with(oi.overlay)
         t0 = time.perf_counter()
         v, f = ix.lookup(q)
         dt = time.perf_counter() - t0
@@ -870,6 +895,7 @@ def maint_path(n_keys: int, seed: int, device, rounds: int = 12) -> dict:
               flush=True)
     if overlapped < 1:
         raise AssertionError("no lookup overlapped a background merge")
+    zipf = filter_on_zipf(ix, pending_ov, keys, tk, tv, rng, zeta)
     t0 = time.perf_counter()
     st = ix.flush()
     flush_s = time.perf_counter() - t0
@@ -921,7 +947,7 @@ def maint_path(n_keys: int, seed: int, device, rounds: int = 12) -> dict:
                          for k, v in sorted(spans.items())},
                publish_s=[m["publish_s"] for m in timings],
                inflight_ms=inflight_ms, idle_ms=idle_ms,
-               overlapped=overlapped, flush_s=flush_s)
+               overlapped=overlapped, flush_s=flush_s, zipf=zipf)
     print(f"maint: {out['merges']} merges ({out['incremental']} incremental, "
           f"{out['reclusters']} re-clusters, {out['retrains']} retrains), "
           f"no fallback, no errors; flush {flush_s:.3f} s; items() equal to "
@@ -939,6 +965,86 @@ def maint_path(n_keys: int, seed: int, device, rounds: int = 12) -> dict:
           f"{[round(x, 3) for x in idle_ms]} (median "
           f"{np.median(idle_ms):.3f})", flush=True)
     ix.close()
+    return out
+
+
+def filter_on_zipf(ix, pending_ov, keys, tk, tv, rng, zeta) -> dict:
+    """The overlay filter under YCSB-A's reads on the local engine `ix`,
+    once its worker has drained: a 2^20 batch of scrambled-zipfian reads
+    of `keys` (theta 0.99, as the updates), held to the truth through
+    `lookup`; over the mirror of `pending_ov` (the writes a lookup saw
+    pending while a merge was in flight: the frozen zipfian upserts under
+    the live deletes, as `_overlay_arrays` builds it), the share of lanes
+    whose filter bit is set, and of those equal to a pending key; the f64
+    kernel's warm ms on the published tables with the mirror's filter,
+    without it and the walk alone (graph replays in turns, each
+    bit-equal to the plain version first); and the host ms of building
+    the mirror (which the first read after each change to the overlay
+    pays) and of its filter alone (built and uploaded).  The launches made
+    here are not counted in the path's.  On the CPU (a rehearsal) only
+    the shares and host times."""
+    import torch
+    from repro_torch.kernels import dili_search as D
+    from repro_torch.kernels.ref import filter_may_hold
+    from repro_torch.online.overlay import overlay_device_arrays
+    from repro_torch.workloads import (DEFAULT_THETA, scatter_ranks,
+                                       zipfian_ranks)
+    oi = ix._engine.oi
+    q_np = keys[scatter_ranks(zipfian_ranks(rng, len(keys), BATCH,
+                                            DEFAULT_THETA, zeta), len(keys))]
+    check_lookup(ix, tk, tv, q_np, "maint zipfian reads", f32=False)
+    if oi._merging is not None or oi.scheduler.depth:
+        raise AssertionError("a merge is in flight during the filter's "
+                             "measurement")
+    n0 = D.kernel_f64.launches
+    dev = oi.device
+    sync = (torch.cuda.synchronize if dev.type == "cuda" else
+            (lambda: None))
+    build_ms, filter_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ov = overlay_device_arrays(pending_ov, torch.float64, device=dev)
+        ov["filter"] = D.overlay_filter(pending_ov.keys).to(dev)
+        sync()
+        build_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        D.overlay_filter(pending_ov.keys).to(dev)
+        sync()
+        filter_ms.append((time.perf_counter() - t0) * 1e3)
+    pend, _, tomb = pending_ov.entries()
+    share_set = float(filter_may_hold(ov["filter"].cpu().numpy(),
+                                      q_np).mean())
+    share_eq = float(np.isin(q_np, pend).mean())
+    arrs = oi.store.kernel_tables
+    q = torch.from_numpy(q_np).to(dev)
+    bare = {k: ov[k] for k in ("keys", "vals", "tomb")}
+    fns = {"filter": lambda: pair(arrs, q, ov=ov),
+           "no_filter": lambda: pair(arrs, q, ov=bare),
+           "walk": lambda: pair(arrs, q)}
+    for k, fn in fns.items():
+        want = pair(arrs, q, plain=True, ov=None if k == "walk" else ov)
+        for g, w in zip(fn(), want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"zipfian reads, {k}: the kernel "
+                                     f"differs from the plain version")
+    rounds = graph_rounds(fns) if dev.type == "cuda" else {}
+    D.kernel_f64.launches = n0
+    out = dict(pending=len(pend), share_set=share_set, share_eq=share_eq,
+               mirror_host_ms=float(np.median(build_ms)),
+               filter_host_ms=float(np.median(filter_ms)),
+               kernel_ms={k: float(np.median(v)) for k, v in rounds.items()},
+               kernel_spread={k: float(max(v) - min(v))
+                              for k, v in rounds.items()})
+    print(f"maint: zipfian reads (2^20, theta {DEFAULT_THETA}) over "
+          f"{len(pend)} pending writes ({int(np.sum(tomb))} of them "
+          f"deletes): filter bit set on {share_set:.4f} of lanes, a pending "
+          f"key on {share_eq:.4f}; f64 kernel warm ms, 8 graph replays of "
+          f"25 in turns: "
+          + "; ".join(f"{k} {[round(x, 5) for x in v]} (median "
+                      f"{np.median(v):.5f})" for k, v in rounds.items())
+          + f"; host ms per overlay change (median of 5): the mirror "
+          f"{out['mirror_host_ms']:.4f}, its filter alone (built and "
+          f"uploaded) {out['filter_host_ms']:.4f}", flush=True)
     return out
 
 
@@ -1128,22 +1234,27 @@ def durable_path(n_keys: int, seed: int, device) -> None:
 
 
 def make_overlay(keys: np.ndarray, rng, device, n_up: int = 1000,
-                 n_dead: int = 600, dtype=None):
+                 n_dead: int = 600, dtype=None, cap: int = 64):
     """An overlay mirror of upserts (new keys between neighbours, and
     overwrites) and tombstones, some re-upserted, over `keys`, with keys
-    of `dtype` (f64 unless given)."""
+    of `dtype` (f64 unless given), at a capacity of at least `cap`, and
+    its membership filter, as the local engine's mirror carries."""
     import torch
+    from repro_torch.kernels.dili_search import overlay_filter
     from repro_torch.online.overlay import (TombstoneOverlay,
                                             overlay_device_arrays)
     mids = (keys[:-1] + keys[1:]) / 2
     up = np.concatenate([mids[rng.integers(0, len(mids), n_up // 2)],
                          keys[rng.integers(0, len(keys), n_up // 2)]])
     dead = keys[rng.integers(0, len(keys), n_dead)]
-    ov = (TombstoneOverlay.empty(64)
+    ov = (TombstoneOverlay.empty(cap)
           .upsert_batch(up, np.arange(len(up)) + 2 ** 40)
           .delete_batch(dead)
           .upsert_batch(dead[: n_dead // 10], np.arange(n_dead // 10)))
-    return overlay_device_arrays(ov, dtype or torch.float64, device=device)
+    arrs = overlay_device_arrays(ov, dtype or torch.float64, device=device)
+    arrs["filter"] = overlay_filter(ov.keys, dtype or torch.float64).to(
+        device)
+    return arrs
 
 
 def _apply(tk, tv, up_k, up_v, dead):
@@ -1158,7 +1269,8 @@ def _apply(tk, tv, up_k, up_v, dead):
 def cuda_ms(fn, reps: int) -> float:
     """ms per call of `fn()`: `reps` calls queued back to back between two
     CUDA events.  The host queues ahead of the card, so this is device time
-    unless a call's host work outlasts its device work."""
+    unless a call's host work outlasts its device work: the plain
+    versions, whose host work syncs, are timed so."""
     import torch
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -1168,6 +1280,53 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def graph_of(fn, reps: int = 25):
+    """`reps` calls of `fn()` captured in one CUDA graph (after three
+    calls on a side stream, which load the kernels and warm the
+    allocator): a replay runs them with no Python between launches."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    return g
+
+
+def replay_ms(g, reps: int = 25) -> float:
+    """ms per launch of one replay of `g` (`reps` launches), between two
+    CUDA events."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def graph_rounds(fns: dict, rounds: int = 8, reps: int = 25) -> dict:
+    """Warm ms per launch of each function in `fns` (name -> fn): each
+    captured once as a graph of `reps` launches, then `rounds` replays of
+    each, in turns, forward then backward (a, b, b, a, ...) so that drift
+    falls on all alike.  Returns name -> list of per-round ms."""
+    graphs = {k: graph_of(fn, reps) for k, fn in fns.items()}
+    names = list(graphs)
+    out = {k: [] for k in names}
+    for r in range(rounds):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            out[k].append(replay_ms(graphs[k], reps))
+    return out
 
 
 def cold_l2_ms(fn, device, reps: int) -> float:
@@ -1229,19 +1388,146 @@ def device_breakdown(fn, reps: int = 3) -> None:
         print(f"  {us / reps:10.1f} us  {name[:90]}", flush=True)
 
 
-def time_kernel(arrs, q, dev, ov=None) -> dict:
-    """Warm ms (8 rounds of 25 launches queued back to back), cold-L2 ms
-    (median of 20 single launches) and plain-version ms (5 calls) of one
-    batch."""
-    for _ in range(3):
-        pair(arrs, q, ov=ov)
-    rounds = [cuda_ms(lambda: pair(arrs, q, ov=ov), 25) for _ in range(8)]
-    print(f"kernel ms per launch over 8 rounds of 25: "
-          f"{[round(x, 5) for x in rounds]}", flush=True)
-    return dict(ms=float(np.median(rounds)),
-                cold_ms=cold_l2_ms(lambda: pair(arrs, q, ov=ov), dev, 20),
-                plain_ms=cuda_ms(lambda: pair(arrs, q, plain=True, ov=ov),
-                                 5))
+class Baseline:
+    """The lookup kernel built from another copy of csrc/dili_search.cu
+    into a library of its own (`--baseline`): the same tables and queries
+    timed through it and through this checkout's kernel in one run.  The
+    copy is either of PR 15's interface (i64 entry points without the
+    overlay filter; f64 CHILD slots holding the bare sentinel and the
+    child's id), converted to here, or of this checkout's (it exports
+    `dili_search_occupancy`), such as this source with one choice edited."""
+
+    def __init__(self, src: str):
+        import ctypes
+        import hashlib
+        from repro_torch.kernels import dili_search as D
+        self.src = src
+        data = Path(src).read_bytes()
+        digest = hashlib.sha256(data + " ".join(D.NVCC_FLAGS).encode())
+        lib_path = D._BUILD_DIR / f"baseline_{digest.hexdigest()[:16]}.so"
+        if not lib_path.exists():
+            D._BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            res = subprocess.run([D._find_nvcc(), *D.NVCC_FLAGS, "-o",
+                                  str(lib_path), src], capture_output=True,
+                                 text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed building the baseline "
+                                   f"{src}:\n{res.stdout}\n{res.stderr}")
+        self.lib = ctypes.CDLL(str(lib_path))
+        self.current = hasattr(self.lib, "dili_search_occupancy")
+        self._legacy = (None, None)   # (slot_rec, its earlier encoding)
+        vp, ll = ctypes.c_void_p, ctypes.c_longlong
+        f32 = [vp] * 3 + [ctypes.c_int, vp, ll, ctypes.c_int] + [vp] * 3
+        i64 = (f32[:7] + [vp] * 3 + [ll]
+               + ([vp, ctypes.c_int] if self.current else []) + [vp] * 3)
+        self.entries = {}
+        for k, name, args in (("f32", "dili_search_f32_launch", f32),
+                              ("f64", "dili_search_f64_launch", i64),
+                              ("f32_i64", "dili_search_f32_i64_launch",
+                               i64)):
+            fn = getattr(self.lib, name)
+            fn.argtypes, fn.restype = args, ctypes.c_int
+            self.entries[k] = fn
+
+    def tables(self, arrs) -> dict:
+        """`arrs` as the copy reads them: for PR 15's, an f64 CHILD slot
+        holds the bare sentinel 0x7FF8000000000002 and the child's id (the
+        slot's other fields are newer); the rest is unchanged."""
+        if self.current or kind(arrs) != "f64":
+            return arrs
+        from repro_torch.kernels.ref import CHILD_KEY_HI_F64
+        if self._legacy[0] is not arrs["slot_rec"]:
+            sr = arrs["slot_rec"].clone()
+            child = (sr[:, 0] >> 32) == CHILD_KEY_HI_F64
+            sr[:, 0] = sr[:, 0].masked_fill(child, 0x7FF8000000000002)
+            sr[:, 1] = sr[:, 1].where(~child, sr[:, 1] & 0xFFFFFFFF)
+            self._legacy = (arrs["slot_rec"], sr)
+        return dict(arrs, slot_rec=self._legacy[1])
+
+    def pair(self, arrs, q, ov=None):
+        import torch
+        k = kind(arrs)
+        arrs = self.tables(arrs)
+        out = torch.empty(q.numel(), dtype=torch.int32 if k == "f32"
+                          else torch.int64, device=q.device)
+        found = torch.empty(q.numel(), dtype=torch.bool, device=q.device)
+        head = (arrs["node_rec"].data_ptr(), arrs["slot_rec"].data_ptr(),
+                arrs["key"].data_ptr(), int(arrs["root"]), q.data_ptr(),
+                q.numel(), int(arrs["max_depth"]))
+        if k != "f32":
+            head += ((0, 0, 0, 0) if ov is None else
+                     (ov["keys"].data_ptr(), ov["vals"].data_ptr(),
+                      ov["tomb"].data_ptr(), ov["keys"].numel()))
+            if self.current:
+                filt = None if ov is None else ov.get("filter")
+                head += ((0, 0) if filt is None else
+                         (filt.data_ptr(),
+                          (32 * filt.numel()).bit_length() - 1))
+        err = self.entries[k](*head, out.data_ptr(), found.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"baseline {k} launch: CUDA error {err}")
+        return out, found
+
+
+def print_occupancy(arrs) -> None:
+    """Registers, spills and resident blocks per SM of the kernel that the
+    engine of these tables runs."""
+    from repro_torch.kernels import dili_search as D
+    k = kind(arrs)
+    kern = {"f32": D.kernel, "f64": D.kernel_f64,
+            "f32_i64": D.kernel_f32_i64}[k]
+    occ = kern.occupancy()
+    print(f"{k} occupancy: {occ['regs']} registers a thread, "
+          f"{occ['local_bytes']} B local, {occ['blocks_per_sm']} blocks of "
+          f"256 per SM ({occ['blocks_per_sm'] * 256} of 2048 threads)",
+          flush=True)
+
+
+def time_kernel(arrs, q, dev, ov=None, baseline=None) -> dict:
+    """Warm ms (8 CUDA-graph replays of 25 launches, `graph_rounds`),
+    cold-L2 ms (median of 20 single launches) and plain-version ms (5
+    calls) of one batch; with an overlay, also the walk alone (`ov=None`);
+    with a `Baseline`, its warm and cold ms on the same batch, the warm
+    rounds in turns with this kernel's (old, new, new, old, ...)."""
+    import torch
+    fns = {"new": lambda: pair(arrs, q, ov=ov)}
+    if ov is not None:
+        fns["walk"] = lambda: pair(arrs, q)
+    if baseline is not None:
+        fns = {"old": lambda: baseline.pair(arrs, q, ov), **fns}
+        for g, w in zip(baseline.pair(arrs, q, ov), pair(arrs, q, ov=ov)):
+            if not torch.equal(g, w):
+                raise AssertionError("the baseline kernel disagrees with "
+                                     "this checkout's on the timed batch")
+        if ov is not None:
+            fns["old_walk"] = lambda: baseline.pair(arrs, q)
+    rounds = graph_rounds(fns)
+    for k, v in rounds.items():
+        print(f"  {k} kernel ms per launch, 8 graph replays of 25: "
+              f"{[round(x, 5) for x in v]}", flush=True)
+    res = {k + "_rounds": v for k, v in rounds.items()}
+    res.update({k + "_ms": float(np.median(v)) for k, v in rounds.items()})
+    res["ms"] = res["new_ms"]
+    for k, fn in fns.items():
+        res[k + "_cold_ms"] = cold_l2_ms(fn, dev, 20)
+    res["cold_ms"] = res["new_cold_ms"]
+    res["plain_ms"] = cuda_ms(lambda: pair(arrs, q, plain=True, ov=ov), 5)
+    if baseline is not None:
+        print(f"  baseline ({baseline.src}) against this kernel: warm "
+              f"{res['old_ms']:.5f} -> {res['new_ms']:.5f} ms, cold "
+              f"{res['old_cold_ms']:.5f} -> {res['new_cold_ms']:.5f} ms"
+              + ("" if ov is None else
+                 f"; the walk alone warm {res['old_walk_ms']:.5f} -> "
+                 f"{res['walk_ms']:.5f} ms, cold "
+                 f"{res['old_walk_cold_ms']:.5f} -> "
+                 f"{res['walk_cold_ms']:.5f} ms"), flush=True)
+    if ov is not None:
+        print(f"  the walk alone (no overlay): warm {res['walk_ms']:.5f} ms, "
+              f"cold {res['walk_cold_ms']:.5f} ms; with the "
+              f"{ov['keys'].numel()}-entry overlay: warm {res['ms']:.5f} ms, "
+              f"cold {res['cold_ms']:.5f} ms", flush=True)
+    return res
 
 
 def replay_checked(arrs, q, ov=None, label="timed batch") -> dict:
@@ -1258,6 +1544,15 @@ def replay_checked(arrs, q, ov=None, label="timed batch") -> dict:
           f"requested (32 B, distinct per warp and load): column layout "
           f"{rp['sectors']['columns']}, packed records "
           f"{rp['sectors']['records']}", flush=True)
+    by = rp["sectors"]["by_level"]
+    for lv, st in enumerate(rp["levels"]):
+        print(f"  level {lv}: {st['lanes']} lanes, {st['nodes']} distinct "
+              f"node records ({by[lv]['node']} sectors), {st['slots']} "
+              f"distinct slot records ({by[lv]['slot']} sectors)",
+              flush=True)
+    if "probe" in by:
+        print(f"  dense probe: {by['probe']['key']} key-column sectors, "
+              f"{by['probe']['slot']} slot-record sectors", flush=True)
     return rp
 
 
@@ -1267,6 +1562,11 @@ def main() -> int:
                     help="keys of each main path (the pallas and "
                     "local-f32 paths take at most 250k)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--baseline", metavar="SRC",
+                    help="another copy of csrc/dili_search.cu (PR 15's "
+                    "or one of this checkout's interface, see Baseline), "
+                    "built into its own library and timed in turns with "
+                    "this checkout's kernel on every timed batch")
     args = ap.parse_args()
 
     import torch
@@ -1295,6 +1595,7 @@ def main() -> int:
           f"built and loaded in {kernel.build_s:.3f} s", flush=True)
     for line in kernel.ptxas_report.splitlines():
         print(f"  {line.strip()}", flush=True)
+    baseline = Baseline(args.baseline) if args.baseline else None
 
     # -- 2. each instance against its plain version, 20k keys -----------------
     d, k20 = K.build_f32_index(generate("logn", 20_000, args.seed))
@@ -1370,7 +1671,8 @@ def main() -> int:
     q = torch.from_numpy(q_np).to(dev)
     max_err = max(max_err, kernel_vs_plain(arrs, {"timed_2^20": q}, "main"))
     rp = replay_checked(arrs, q)
-    t32 = time_kernel(arrs, q, dev)
+    print_occupancy(arrs)
+    t32 = time_kernel(arrs, q, dev, baseline=baseline)
     pk = torch.from_numpy(flat.pair_key.astype(np.float32)).to(dev)
     pv = torch.from_numpy(flat.pair_val.astype(np.int32)).to(dev)
 
@@ -1383,7 +1685,7 @@ def main() -> int:
     if not (torch.equal(lf, kf) and torch.equal(lv[lf], kv[kf])):
         raise AssertionError("searchsorted over the pair table disagrees "
                              "with the kernel")
-    library_ms = cuda_ms(library, 50)
+    library_ms = float(np.median(graph_rounds({"lib": library})["lib"]))
     ix.lookup(q_np)
     lookup_ms = float(np.median([check_lookup(ix, tk, tv, q_np, "timed")
                                  for _ in range(5)])) * 1e3
@@ -1441,7 +1743,8 @@ def main() -> int:
     max_err64 = max(max_err64, kernel_vs_plain(arrs, {"timed_2^20": q},
                                                "local", ov=ov))
     rp = replay_checked(arrs, q, ov)
-    t64 = time_kernel(arrs, q, dev, ov)
+    print_occupancy(arrs)
+    t64 = time_kernel(arrs, q, dev, ov, baseline)
     pk = torch.from_numpy(flat.pair_key).to(dev)
     pv = torch.from_numpy(flat.pair_val).to(dev)
 
@@ -1454,7 +1757,8 @@ def main() -> int:
     if not (torch.equal(lf, kf) and torch.equal(lv[lf], kv[kf])):
         raise AssertionError("searchsorted over the pair table and the "
                              "overlay disagrees with the kernel")
-    library64_ms = cuda_ms(library64, 50)
+    library64_ms = float(np.median(graph_rounds(
+        {"lib": library64})["lib"]))
     ix.lookup(q_np)
     lookup64_ms = float(np.median([
         check_lookup(ix, tk, tv, q_np, "local timed", f32=False)
@@ -1520,7 +1824,8 @@ def main() -> int:
     max_err32l = max(max_err32l, kernel_vs_plain(arrs, {"timed_2^20": q},
                                                  "local-f32", ov=ov))
     rp = replay_checked(arrs, q, ov)
-    t32l = time_kernel(arrs, q, dev, ov)
+    print_occupancy(arrs)
+    t32l = time_kernel(arrs, q, dev, ov, baseline)
     pk = torch.from_numpy(flat.pair_key.astype(np.float32)).to(dev)
     pv = torch.from_numpy(flat.pair_val).to(dev)
 
@@ -1535,7 +1840,8 @@ def main() -> int:
     if not (bool(lf[kf].all()) and torch.equal(lv[kf], kv[kf])):
         raise AssertionError("searchsorted over the pair table and the "
                              "overlay disagrees with the f32/i64 kernel")
-    library32l_ms = cuda_ms(library32l, 50)
+    library32l_ms = float(np.median(graph_rounds(
+        {"lib": library32l})["lib"]))
     ix.lookup(q_np)
     lookup32l_ms = float(np.median([
         check_lookup_f32_local(ix, tk, tv, q_np, "local-f32 timed")[0]

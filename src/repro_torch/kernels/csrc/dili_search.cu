@@ -12,30 +12,13 @@
 // nothing is flagged: a lane that reaches a dense leaf runs the leaf's
 // exponential + binary search in place.
 //
-// What bounds it on this card: a dependent chase through tables that sit
-// in the 50 MB L2 (16 B a node, 12 B a slot; 12.5 MB at 1M keys).  Each
-// level's address depends on the last level's payload, and a scattered
-// load costs one 32-byte L2 sector however few of its bytes are used, so
-// the time goes in L2 sectors and their latency, not in HBM bytes or
-// arithmetic.  The design cuts the sectors a lane needs:
-//   * one vector load per node and one per slot.  A node is one 16-byte
-//     record {a bits, b bits, base, fo}, its dense flag in fo's sign
-//     (ld.global.nc.v4); a slot is one 8-byte record {key bits, val}
-//     (ld.global.nc.v2) whose key holds a NaN sentinel for the tags other
-//     than PAIR: kChildBits for a child, the quiet NaN for an empty slot
-//     (see kernels/ops.py::pack_tables).  A level is two sectors instead of
-//     the column layout's six to eight (five node columns, then tag, key
-//     and val).  The slot record is 8 bytes rather than 16: both are one
-//     sector per lane and load, and a replay of the walk counted within
-//     1% the same distinct sectors per warp for either width (PERF.md),
-//     but 8 bytes keep a slot at 12 B with the key column, as in the
-//     column layout, where 16 would make it 20 B of a table that must
-//     stay in L2;
-//   * the dense probe reads the contiguous f32 `key` column, so its
-//     neighbouring probes fall in one sector and hit L1;
-//   * one thread per query, with no persistent grid and no shared-memory
-//     copy of the root: both were measured at the main index and were
-//     slower (the root's slots stay in L1 anyway; see PERF.md).
+// The tables: row-packed records, one vector load per node and one per
+// slot (kernels/ops.py::pack_tables).  A node is {a, b, base, fo}, its
+// dense flag in fo's sign; a slot is {key bits, val}, whose key holds a
+// NaN sentinel for the tags other than PAIR (a child's, or the quiet NaN
+// of an empty slot), so that a level is two sectors where the reference's
+// column layout made it six to eight.  The dense probe reads the
+// contiguous `key` column, so its neighbouring probes fall in one sector.
 // Arithmetic is the reference's: slot prediction as two roundings,
 // add_rn(a, mul_rn(b, q)) (nvcc would contract a + b*q into an FMA with
 // one), floor, a float -> int32 cast that saturates as XLA's does (+inf and
@@ -44,34 +27,70 @@
 // stops a phase as soon as the fixed-trip vector code would leave its lane
 // unchanged, which gives the same result.
 //
-// Three instances of one template on the key and payload types:
-//   * f32 keys, i32 payloads (`dili_search_f32_launch`): the `pallas`
-//     engine's kernel, above;
-//   * f64 keys, i64 payloads (`dili_search_f64_launch`): the local engine's
-//     read path.  It replaces the XLA dispatch of the reference's
-//     `core/search.py::search_with_overlay`: the f64 walk, the dense probe
-//     and, as an epilogue in the same launch, `resolve_overlay` over the
-//     pending-write overlay (lower bound over its sorted keys, a tombstone
-//     hides the snapshot's hit, a live entry's val wins).  Its records are
-//     twice as wide: a node is 32 bytes {a, b, base, fo, pad}, two v4
-//     loads; a slot 16 bytes {key bits, val}, one v4 load; the sentinels
-//     are 64-bit NaNs.  The prediction is __dadd_rn(a, __dmul_rn(b, q)).
-//     A standard f64 build has no dense leaf, so the walk is the whole
-//     cost, and at 1M keys its tables (about 75 MB) no longer fit the L2.
-//   * f32 keys, i64 payloads (`dili_search_f32_i64_launch`): the local
-//     engine at dtype=float32, which in the reference runs the same
-//     `search_with_overlay` through XLA at f32 with int64 payloads.  The
-//     node record is the f32 instance's 16 bytes; a slot is 16 bytes {f32
-//     key bits, 4 bytes of padding, i64 val}, one v4 load; the sentinels
-//     are the f32 instance's; the overlay epilogue compares f32 keys and
-//     returns i64 vals.  Its prediction is the one exception to the two
-//     roundings: __fmaf_rn(b, q, a), one rounding, because that is what
+// What bounds it on this card.  A lane's walk is a chain of dependent
+// loads, a node record then a slot record a level, each at an address
+// that the last one's payload decides, and a scattered load costs a
+// 32-byte sector and an L1/L2 request however few of its bytes are used.
+// At full occupancy (8 blocks of 256 threads an SM, under 32 registers a
+// thread) the requests and their latency, not HBM bytes or arithmetic,
+// set the time: every instance runs at 5-13x the bytes its batch must
+// move (PERF.md, section 6, where each number below comes from).
+//   * f32 keys, i32 payloads (`dili_search_f32_launch`, the `pallas`
+//     engine): 16-byte nodes and 8-byte slots that sit in the 50 MB L2
+//     (3.2 MB at 250k keys; nearly every lane ends in a dense leaf's
+//     probe).  An 8-byte slot keeps a slot at 12 bytes with the key
+//     column; a persistent grid and a shared-memory copy of the root were
+//     measured at f32 and were slower.  This instance takes none of the
+//     choices below.
+//   * f64 keys, i64 payloads (`dili_search_f64_launch`, the local engine,
+//     `IndexConfig()`'s default): in place of the XLA dispatch of the
+//     reference's `core/search.py::search_with_overlay`, the f64 walk, the
+//     dense probe and, as an epilogue in the same launch, `resolve_overlay`
+//     over the pending-write overlay (lower bound over its sorted keys, a
+//     tombstone hides the snapshot's hit, a live entry's val wins).  Nodes
+//     are 32 bytes {a, b, base, fo, padding}, slots 16 bytes {key bits,
+//     val}, the sentinels 64-bit NaNs; at 1M keys the tables are
+//     about 75 MB and overflow the L2, so a lane's slot in the leaf level
+//     (645k distinct in a 2^20 batch) mostly comes from HBM.  A standard
+//     f64 build has no dense leaf.  Measured at 1M keys: the overlay
+//     epilogue, a 12-step bisection of the 4096-entry overlay in L1 for
+//     every lane, was 29% of the kernel, and the walk the rest.
+//   * f32 keys, i64 payloads (`dili_search_f32_i64_launch`, the local
+//     engine at dtype=float32): the same `search_with_overlay` at f32 with
+//     int64 payloads.  The node record is the f32 instance's 16 bytes; a
+//     slot is 16 bytes {f32 key bits, 4 bytes of padding, i64 val}; the
+//     tables (15 MB at 250k keys) fit the L2, and the overlay epilogue
+//     was 36% of the kernel.  Its prediction is the one exception to the
+//     two roundings: __fmaf_rn(b, q, a), one rounding, because that is what
 //     the reference computes there.  XLA on the CPU contracts a + b*q
 //     into an FMA despite its optimization barrier; where keys were placed
 //     in the search's own precision, construction's nudges off integer
 //     boundaries make both roundings agree, but these tables are f32 casts
 //     of an f64-placed tree, and two roundings would find keys the
-//     reference misses (PERF.md, section 6).
+//     reference misses.
+// What the design of the two i64 instances does about it, each choice
+// fixed at compile time and kept only where it measured faster in one
+// call (kernel_bench.py; PERF.md, section 6):
+//   * both: the overlay membership filter.  The local engine's overlay
+//     mirror carries a bitmap of 16 bits a key (8 KB at capacity 4096,
+//     L1-resident); a lane whose bit is clear equals no overlay key and
+//     skips the bisection, so most lanes make one L1 request for the
+//     overlay instead of thirteen.  A mirror without one (the argument is
+//     null) is bisected on every lane;
+//   * f64/i64 only: child fields (a CHILD slot carries the child's base
+//     and fo in its key and val words' spare halves, so the walk reads one
+//     v4, a and b, of each child's record instead of two) and streaming
+//     (the queries in and (val, found) out with the .cs cache operator; at
+//     f32/i64 it was slower);
+//   * measured and dropped, their code removed: node records and the
+//     slots of all-child nodes under an L2 evict_last policy (createpolicy
+//     and ld.global.nc.L2::cache_hint; no faster: the upper tree stays in
+//     the L2 as it is), the other slots under evict_first (slower), the
+//     overlay's lower bound over samples staged in shared memory, then a
+//     short bisection in global memory (no faster at f64, slower at f32,
+//     where staging the 16 KB overlay in every block costs more than the
+//     divergent loads it saves), and two queries a thread with their loads
+//     interleaved (slower: the SM is at full occupancy already).
 // The overlay epilogue runs when the caller passes an overlay (length > 0);
 // the f32/i32 entry point passes none.  The kernel allocates nothing and does
 // not synchronise; each C entry point launches on the caller's stream and
@@ -87,6 +106,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kProbeSteps = 16;              // `_dense_search`'s trip counts
 
+// the filter's multiplicative hash (kernels/ref.py::FILTER_HASH)
+constexpr unsigned long long kFilterHash = 0x9E3779B97F4A7C15ull;
+
 template <typename Key>
 struct KeyTraits;
 
@@ -94,6 +116,7 @@ template <>
 struct KeyTraits<float> {
   using Bits = uint32_t;
   static constexpr Bits kChildBits = 0x7fc00002u;   // CHILD slot sentinel
+  __device__ static bool is_child(Bits k) { return k == kChildBits; }
   __device__ static Bits bits(float k) { return __float_as_uint(k); }
   __device__ static float mul_rn(float x, float y) { return __fmul_rn(x, y); }
   __device__ static float add_rn(float x, float y) { return __fadd_rn(x, y); }
@@ -105,7 +128,10 @@ struct KeyTraits<float> {
 template <>
 struct KeyTraits<double> {
   using Bits = unsigned long long;
-  static constexpr Bits kChildBits = 0x7ff8000000000002ull;  // CHILD sentinel
+  // a CHILD slot's key word: this NaN's high half, the child's signed
+  // fanout in the low half (kernels/ref.py::CHILD_KEY_HI_F64)
+  static constexpr uint32_t kChildHi = 0x7ff80002u;
+  __device__ static bool is_child(Bits k) { return (k >> 32) == kChildHi; }
   __device__ static Bits bits(double k) {
     return static_cast<Bits>(__double_as_longlong(k));
   }
@@ -124,9 +150,16 @@ struct alignas(16) NodeRec {
   int base, fo;
 };
 
-// slot record: PAIR -> {key, payload}; CHILD -> {kChildBits, node id};
-// EMPTY -> {quiet NaN, payload}.  Aligned to twice its wider field, so an
-// f32 key with an i64 payload is {key, 4 bytes of padding, val}.
+// a node's model, the first 16 bytes of its f64 record
+struct alignas(16) ModelF64 {
+  double a, b;
+};
+
+// slot record: PAIR -> {key, payload}; CHILD -> {kChildBits, node id} at
+// f32, and at f64 {kChildHi << 32 | the child's signed fo, the child's id
+// | its base << 32}; EMPTY -> {quiet NaN, payload}.  Aligned to twice its
+// wider field, so an f32 key with an i64 payload is {key, 4 bytes of
+// padding, val}.
 template <typename Key, typename Val>
 struct alignas(2 * (sizeof(Key) > sizeof(Val) ? sizeof(Key) : sizeof(Val)))
     SlotRec {
@@ -137,6 +170,7 @@ struct alignas(2 * (sizeof(Key) > sizeof(Val) ? sizeof(Key) : sizeof(Val)))
 static_assert(sizeof(NodeRec<float>) == 16, "node record is one v4 load");
 static_assert(sizeof(SlotRec<float, int>) == 8, "slot record is one v2 load");
 static_assert(sizeof(NodeRec<double>) == 32, "node record is two v4 loads");
+static_assert(sizeof(ModelF64) == 16, "a model is one v4 load");
 static_assert(sizeof(SlotRec<double, long long>) == 16,
               "slot record is one v4 load");
 using SlotRecF32I64 = SlotRec<float, long long>;
@@ -160,6 +194,20 @@ __device__ __forceinline__ T ld_record(const T* p) {
     }
   }
   return out;
+}
+
+// child n's record into nd; at f64 its model alone, one v4 load instead
+// of two, since its parent's CHILD slot already put its base and fo in nd
+template <typename Key>
+__device__ __forceinline__ void load_child(const NodeRec<Key>* nodes, int n,
+                                           NodeRec<Key>& nd) {
+  if constexpr (sizeof(Key) == 8) {
+    const ModelF64 m = ld_record(reinterpret_cast<const ModelF64*>(nodes + n));
+    nd.a = m.a;
+    nd.b = m.b;
+  } else {
+    nd = ld_record(nodes + n);
+  }
 }
 
 template <typename Key>
@@ -228,31 +276,53 @@ __device__ __forceinline__ void dense_probe(
   }
 }
 
-// `resolve_overlay` on one lane: the lower bound of q over all n overlay
-// keys (the +inf padding of the capacity included, as torch.searchsorted
-// bisects it), clipped to n - 1; if that key equals q (never for a NaN
-// lane), a tombstone hides the snapshot's hit and keeps its val, and a live
-// entry's val wins.
+// The pending-write overlay: n keys sorted ascending (the +inf padding of
+// its capacity included; the facade refuses non-finite keys, so no NaN),
+// their vals and tombstone bytes, and, where the mirror carries one, a
+// bitmap of 1 << filter_log2 bits with bit h(k) set for every key k.
 template <typename Key, typename Val>
-__device__ __forceinline__ void overlay_resolve(
-    const Key* __restrict__ ov_keys, const Val* __restrict__ ov_vals,
-    const int8_t* __restrict__ ov_tomb, int64_t n, Key q, Val& out,
-    bool& hit) {
-  int64_t lo = 0, hi = n;
+struct Overlay {
+  const Key* keys;
+  const Val* vals;
+  const int8_t* tomb;
+  int64_t n;
+  const uint32_t* filter;           // or null
+  int filter_log2;
+};
+
+// false only if no overlay key equals q: the bit of q's hash is clear.
+// Equal keys have equal bits once -0 is made +0 (q + 0 does it), and a
+// NaN equals no key, whatever its bit.
+template <typename Key, typename Val>
+__device__ __forceinline__ bool may_hold(const Overlay<Key, Val>& ov, Key q) {
+  using T = KeyTraits<Key>;
+  const unsigned long long b = T::bits(T::add_rn(q, Key(0)));
+  const unsigned long long h = (b * kFilterHash) >> (64 - ov.filter_log2);
+  return (__ldg(ov.filter + (h >> 5)) >> (h & 31)) & 1u;
+}
+
+// `resolve_overlay` on one lane: the lower bound of q over all n overlay
+// keys (as torch.searchsorted bisects them), clipped to n - 1; if that key
+// equals q (never for a NaN lane), a tombstone hides the snapshot's hit
+// and keeps its val, and a live entry's val wins.
+template <typename Key, typename Val>
+__device__ __forceinline__ void overlay_resolve(const Overlay<Key, Val>& ov,
+                                                Key q, Val& out, bool& hit) {
+  int64_t lo = 0, hi = ov.n;
   while (lo < hi) {
     const int64_t mid = (lo + hi) >> 1;
-    if (__ldg(ov_keys + mid) < q) {
+    if (__ldg(ov.keys + mid) < q) {
       lo = mid + 1;
     } else {
       hi = mid;
     }
   }
-  const int64_t i = lo < n - 1 ? lo : n - 1;
-  if (__ldg(ov_keys + i) == q) {
-    if (__ldg(ov_tomb + i) > 0) {
+  const int64_t i = lo < ov.n - 1 ? lo : ov.n - 1;
+  if (__ldg(ov.keys + i) == q) {
+    if (__ldg(ov.tomb + i) > 0) {
       hit = false;
     } else {
-      out = __ldg(ov_vals + i);
+      out = __ldg(ov.vals + i);
       hit = true;
     }
   }
@@ -264,14 +334,19 @@ dili_search_kernel(const NodeRec<Key>* __restrict__ nodes,
                    const SlotRec<Key, Val>* __restrict__ slots,
                    const Key* __restrict__ keys, int root,
                    const Key* __restrict__ queries, int64_t nq,
-                   int max_depth, const Key* __restrict__ ov_keys,
-                   const Val* __restrict__ ov_vals,
-                   const int8_t* __restrict__ ov_tomb, int64_t ov_n,
+                   int max_depth, Overlay<Key, Val> ov,
                    Val* __restrict__ out, bool* __restrict__ found) {
   using T = KeyTraits<Key>;
+  // the f64/i64 instance streams its queries and results (.cs)
+  constexpr bool kStream = sizeof(Key) == 8;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= nq) return;
-  const Key q = queries[i];
+  Key q;
+  if constexpr (kStream) {
+    q = __ldcs(queries + i);
+  } else {
+    q = queries[i];
+  }
   Val v = Val(-1);
   bool hit = false;
   int n = root;
@@ -279,14 +354,19 @@ dili_search_kernel(const NodeRec<Key>* __restrict__ nodes,
   bool loaded = true;               // nd holds node n's record
   for (int d = 0; d < max_depth; ++d) {
     if (!loaded) {
-      nd = ld_record(nodes + n);
+      load_child(nodes, n, nd);
       loaded = true;
     }
     if (nd.fo < 0) break;                     // dense leaf: probe below
     const int pos = predict_slot<Key, Fused>(nd.a, nd.b, q, nd.fo);
     const SlotRec<Key, Val> s = ld_record(slots + nd.base + pos);
-    if (T::bits(s.key) == T::kChildBits) {
-      n = static_cast<int>(s.val);
+    const auto bits = T::bits(s.key);
+    if (T::is_child(bits)) {
+      n = static_cast<int>(static_cast<uint32_t>(s.val));
+      if constexpr (sizeof(Key) == 8) {       // the child's base and fo
+        nd.base = static_cast<int>(static_cast<unsigned long long>(s.val) >> 32);
+        nd.fo = static_cast<int>(static_cast<uint32_t>(bits));
+      }
       loaded = false;
       continue;
     }
@@ -299,31 +379,47 @@ dili_search_kernel(const NodeRec<Key>* __restrict__ nodes,
   }
   // a lane still on its way after max_depth trips is probed if the node it
   // stands on is dense (search_batch's exit does the same)
-  if (!loaded) nd = ld_record(nodes + n);
+  if (!loaded) load_child(nodes, n, nd);
   if (nd.fo < 0) dense_probe<Key, Val, Fused>(nd, slots, keys, q, v, hit);
-  if (ov_n > 0) overlay_resolve(ov_keys, ov_vals, ov_tomb, ov_n, q, v, hit);
-  out[i] = v;
-  found[i] = hit;
+  if (ov.n > 0 && (ov.filter == nullptr || may_hold(ov, q))) {
+    overlay_resolve(ov, q, v, hit);
+  }
+  if constexpr (kStream) {
+    __stcs(out + i, v);
+    asm volatile("st.global.cs.u8 [%0], %1;"
+                 :
+                 : "l"(found + i), "h"(static_cast<unsigned short>(hit)));
+  } else {
+    out[i] = v;
+    found[i] = hit;
+  }
 }
 
 template <typename Key, typename Val, bool Fused>
 int launch(const void* nodes, const void* slots, const void* keys, int root,
            const void* queries, long long nq, int max_depth,
            const void* ov_keys, const void* ov_vals, const void* ov_tomb,
-           long long ov_n, void* out, void* found, void* stream) {
+           long long ov_n, const void* ov_filter, int filter_log2,
+           void* out, void* found, void* stream) {
   if (nq <= 0) return static_cast<int>(cudaSuccess);
+  const bool filtered = ov_n > 0 && ov_filter != nullptr;
+  if (ov_n < 0 || (filtered && (filter_log2 < 5 || filter_log2 > 40))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Overlay<Key, Val> ov{
+      static_cast<const Key*>(ov_keys), static_cast<const Val*>(ov_vals),
+      static_cast<const int8_t*>(ov_tomb), static_cast<int64_t>(ov_n),
+      filtered ? static_cast<const uint32_t*>(ov_filter) : nullptr,
+      filter_log2};
   const long long blocks = (nq + kThreads - 1) / kThreads;
   dili_search_kernel<Key, Val, Fused>
       <<<static_cast<unsigned int>(blocks), kThreads, 0,
          static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const NodeRec<Key>*>(nodes),
-          static_cast<const SlotRec<Key, Val>*>(slots),
-          static_cast<const Key*>(keys), root,
-          static_cast<const Key*>(queries), static_cast<int64_t>(nq),
-          max_depth, static_cast<const Key*>(ov_keys),
-          static_cast<const Val*>(ov_vals),
-          static_cast<const int8_t*>(ov_tomb), static_cast<int64_t>(ov_n),
-          static_cast<Val*>(out), static_cast<bool*>(found));
+      static_cast<const NodeRec<Key>*>(nodes),
+      static_cast<const SlotRec<Key, Val>*>(slots),
+      static_cast<const Key*>(keys), root, static_cast<const Key*>(queries),
+      static_cast<int64_t>(nq), max_depth, ov,
+      static_cast<Val*>(out), static_cast<bool*>(found));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -337,37 +433,54 @@ extern "C" int dili_search_f32_launch(const void* nodes, const void* slots,
                                       void* stream) {
   return launch<float, int, false>(nodes, slots, keys, root, queries, nq,
                                    max_depth, nullptr, nullptr, nullptr, 0,
-                                   out, found, stream);
+                                   nullptr, 0, out, found, stream);
 }
 
 // f64 keys, i64 payloads, with the overlay resolve fused in when ov_n > 0
-// (ov_n is the overlay's capacity, its +inf padding included): the local
-// engine's lookup
-extern "C" int dili_search_f64_launch(const void* nodes, const void* slots,
-                                      const void* keys, int root,
-                                      const void* queries, long long nq,
-                                      int max_depth, const void* ov_keys,
-                                      const void* ov_vals,
-                                      const void* ov_tomb, long long ov_n,
-                                      void* out, void* found, void* stream) {
-  return launch<double, long long, false>(nodes, slots, keys, root,
-                                          queries, nq, max_depth, ov_keys,
-                                          ov_vals, ov_tomb, ov_n, out, found,
-                                          stream);
+// (ov_n is the overlay's capacity, its +inf padding included; the bitmap
+// of 1 << filter_log2 bits at ov_filter is consulted unless ov_filter is
+// null): the local engine's lookup
+extern "C" int dili_search_f64_launch(
+    const void* nodes, const void* slots, const void* keys, int root,
+    const void* queries, long long nq, int max_depth, const void* ov_keys,
+    const void* ov_vals, const void* ov_tomb, long long ov_n,
+    const void* ov_filter, int filter_log2, void* out, void* found,
+    void* stream) {
+  return launch<double, long long, false>(
+      nodes, slots, keys, root, queries, nq, max_depth, ov_keys, ov_vals,
+      ov_tomb, ov_n, ov_filter, filter_log2, out, found, stream);
 }
 
 // f32 keys, i64 payloads, with the overlay resolve fused in when ov_n > 0
 // (the overlay's keys cast to f32): the local engine at dtype=float32
-extern "C" int dili_search_f32_i64_launch(const void* nodes,
-                                          const void* slots,
-                                          const void* keys, int root,
-                                          const void* queries, long long nq,
-                                          int max_depth, const void* ov_keys,
-                                          const void* ov_vals,
-                                          const void* ov_tomb,
-                                          long long ov_n, void* out,
-                                          void* found, void* stream) {
-  return launch<float, long long, true>(nodes, slots, keys, root, queries,
-                                        nq, max_depth, ov_keys, ov_vals,
-                                        ov_tomb, ov_n, out, found, stream);
+extern "C" int dili_search_f32_i64_launch(
+    const void* nodes, const void* slots, const void* keys, int root,
+    const void* queries, long long nq, int max_depth, const void* ov_keys,
+    const void* ov_vals, const void* ov_tomb, long long ov_n,
+    const void* ov_filter, int filter_log2, void* out, void* found,
+    void* stream) {
+  return launch<float, long long, true>(
+      nodes, slots, keys, root, queries, nq, max_depth, ov_keys, ov_vals,
+      ov_tomb, ov_n, ov_filter, filter_log2, out, found, stream);
+}
+
+// Registers, local (spill) bytes and resident blocks of kThreads threads
+// per SM of one instance's kernel (0 f32/i32, 1 f64/i64, 2 f32/i64), from
+// the runtime; returns the first CUDA error.
+extern "C" int dili_search_occupancy(int instance, int* regs,
+                                     int* local_bytes, int* blocks_per_sm) {
+  const void* fn =
+      instance == 0 ? reinterpret_cast<const void*>(
+                          dili_search_kernel<float, int, false>)
+      : instance == 1 ? reinterpret_cast<const void*>(
+                            dili_search_kernel<double, long long, false>)
+                      : reinterpret_cast<const void*>(
+                            dili_search_kernel<float, long long, true>);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, fn, kThreads, 0));
 }

@@ -38,10 +38,11 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..obs import watchdog
-from .ref import dili_search_ref, search_with_overlay_ref
+from .ref import dili_search_ref, filter_hash, search_with_overlay_ref
 
 _SRC = Path(__file__).parent / "csrc" / "dili_search.cu"
 _BUILD_DIR = Path(__file__).parent / "_build"
@@ -65,7 +66,25 @@ _F32_ARGS = ([ctypes.c_void_p] * 3
              + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
              + [ctypes.c_void_p] * 3)
 _F64_ARGS = (_F32_ARGS[:7] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-             + [ctypes.c_void_p] * 3)
+             + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3)
+_OCCUPANCY_ARGS = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+
+
+def overlay_filter(keys, dtype=torch.float64) -> torch.Tensor:
+    """The membership bitmap of overlay keys (host numpy, cast to the
+    mirror's key `dtype`) as int32 words, 16 bits a key and at least
+    1024, a power of two: bit h(k) is set for every key k (the +inf
+    padding included; `ref.filter_hash`).  The i64 instances skip the
+    overlay for a query whose bit is clear, which no key equals, when the
+    mirror carries this as its "filter"."""
+    kdt = np.float64 if dtype == torch.float64 else np.float32
+    k = np.asarray(keys).astype(kdt)
+    log2m = max(10, (16 * max(len(k), 1) - 1).bit_length())
+    bits = np.zeros(1 << log2m, bool)
+    bits[filter_hash(k, log2m)] = True
+    # bit j of word w is bits[32 w + j] (little-endian words)
+    return torch.from_numpy(np.packbits(bits, bitorder="little").view(
+        "<i4").astype(np.int32))
 
 
 class _Library:
@@ -105,7 +124,9 @@ class _Library:
             for name, argtypes in (("dili_search_f32_launch", _F32_ARGS),
                                    ("dili_search_f64_launch", _F64_ARGS),
                                    ("dili_search_f32_i64_launch",
-                                    _F64_ARGS)):
+                                    _F64_ARGS),
+                                   ("dili_search_occupancy",
+                                    _OCCUPANCY_ARGS)):
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -125,8 +146,9 @@ class DiliSearchKernel:
     library, which holds every instance.  An empty batch launches
     nothing and is not counted."""
 
-    def __init__(self, entry: str):
+    def __init__(self, entry: str, instance: int):
         self.entry = entry
+        self.instance = instance       # dili_search_occupancy's number
         self.launches = 0
         self._count_lock = threading.Lock()
 
@@ -145,6 +167,19 @@ class DiliSearchKernel:
     def build(self) -> None:
         _library.load()
 
+    def occupancy(self) -> dict:
+        """Registers a thread, local (spill) bytes and resident blocks of
+        256 threads per SM of this instance's kernel, from the CUDA
+        runtime (builds the library)."""
+        out = [ctypes.c_int(0) for _ in range(3)]
+        err = _library.load().dili_search_occupancy(
+            self.instance, *map(ctypes.byref, out))
+        if err != 0:
+            raise RuntimeError(f"dili_search_occupancy failed: CUDA error "
+                               f"{err}")
+        return dict(regs=out[0].value, local_bytes=out[1].value,
+                    blocks_per_sm=out[2].value)
+
     def launch(self, queries: torch.Tensor, *ptrs) -> None:
         """Launch on `queries`' device and current stream; `ptrs` are the
         entry point's arguments before the stream."""
@@ -161,9 +196,9 @@ class DiliSearchKernel:
 #: the f32/i32 instance (the `pallas` engine's kernel) and the f64/i64
 #: and f32/i64 instances with the overlay resolve (the local engine's at
 #: f64 and at f32); their `launches` are the counters the smoke run reads
-kernel = DiliSearchKernel("dili_search_f32_launch")
-kernel_f64 = DiliSearchKernel("dili_search_f64_launch")
-kernel_f32_i64 = DiliSearchKernel("dili_search_f32_i64_launch")
+kernel = DiliSearchKernel("dili_search_f32_launch", 0)
+kernel_f64 = DiliSearchKernel("dili_search_f64_launch", 1)
+kernel_f32_i64 = DiliSearchKernel("dili_search_f32_i64_launch", 2)
 watchdog.register_jit_provider("kernels.dili_search",
                                lambda: int(kernel.built))
 
@@ -230,6 +265,12 @@ def _check_overlay(ov: dict, dev: torch.device,
                              f"keys have {n}")
     if n == 0:
         raise ValueError("an overlay needs at least one row (its capacity)")
+    if "filter" in ov:
+        f = ov["filter"]
+        _check_tensor("overlay filter", f, torch.int32, None, 4, dev)
+        if f.shape[0] < 32 or f.shape[0] & (f.shape[0] - 1):
+            raise ValueError(f"overlay filter has {f.shape[0]} words, not "
+                             f"a power of two >= 32")
     return n
 
 
@@ -264,12 +305,14 @@ def dili_search_f64(node_rec, slot_rec, key, queries, root: int,
     """(vals i64, found bool) for a batch of f64 queries over the f64
     kernel tables (`ops.pack_tables(..., dtype=torch.float64)`), with the
     overlay mirror `ov` (`online.overlay.overlay_device_arrays`: keys,
-    vals, tomb at its capacity) resolved over the snapshot's result, as
-    the reference's `search_with_overlay`.  CUDA tensors launch the f64
+    vals, tomb at its capacity, and optionally its membership "filter",
+    `overlay_filter`) resolved over the snapshot's result, as the
+    reference's `search_with_overlay`.  CUDA tensors launch the f64
     instance, walk, dense probe and overlay in one launch; CPU tensors run
     the plain version.  `early_exit` changes nothing in the result: the
     plain version stops the batch once every lane is done, and on the card
-    each thread stops on its own whatever it says."""
+    each thread stops on its own whatever it says.  Nor does the filter,
+    which only lets the card's kernel skip the overlay's bisection."""
     return _with_overlay(kernel_f64, torch.float64, node_rec, slot_rec, key,
                          queries, root, max_depth, ov, early_exit)
 
@@ -302,8 +345,11 @@ def _with_overlay(kern: DiliSearchKernel, key_dtype: torch.dtype, node_rec,
     ov_ptrs = ((0, 0, 0) if ov is None else
                (ov["keys"].data_ptr(), ov["vals"].data_ptr(),
                 ov["tomb"].data_ptr()))
+    filt = None if ov is None else ov.get("filter")
     kern.launch(queries, node_rec.data_ptr(), slot_rec.data_ptr(),
                 key.data_ptr(), int(root), queries.data_ptr(), nq,
-                int(max_depth), *ov_ptrs, ov_n, out.data_ptr(),
-                found.data_ptr())
+                int(max_depth), *ov_ptrs, ov_n,
+                0 if filt is None else filt.data_ptr(),
+                0 if filt is None else (32 * filt.shape[0]).bit_length() - 1,
+                out.data_ptr(), found.data_ptr())
     return out, found

@@ -31,9 +31,12 @@ agree (see core/dili.py).  `build_f32_index` does exactly that.
 The local engine's tables (`pack_tables(..., dtype=torch.float64)`) have
 the same fields at twice the width: `node_rec` int64 [n_nodes, 4] =
 (a bits, b bits, base and fo as the low and high int32 halves of one word,
-padding), 32 bytes a node with fo signed as above; `slot_rec` int64 [n_slots, 2] = (key bits, val), with the 64-bit
-sentinels `CHILD_KEY_BITS_F64` and the quiet NaN `EMPTY_KEY_BITS_F64`;
-`key` f64.  Its lookup, `search_with_overlay`, also resolves the
+padding), 32 bytes a node with fo signed as above; `slot_rec` int64
+[n_slots, 2] = (key bits, val), with the quiet NaN `EMPTY_KEY_BITS_F64`
+for an empty slot, and for a child the NaN `CHILD_KEY_HI_F64 << 32 | fo`
+(the child's signed fo) beside `id | base << 32` (the child's node id
+and base), so that the walk reads a child's base and fo with the slot
+that names it; `key` f64.  Its lookup, `search_with_overlay`, also resolves the
 pending-write overlay in the same launch.  At dtype=float32 the local
 engine keeps int64 payloads (`pack_tables(..., dtype=torch.float32,
 val_dtype=torch.int64)`): `node_rec` is the f32 one, `slot_rec` int64
@@ -51,7 +54,7 @@ from ..core.flat import TAG_CHILD, TAG_EMPTY, TAG_PAIR, FlatDILI
 from ..device import resolve_device
 from .dili_search import dili_search as dili_search_kernel
 from .dili_search import dili_search_f32_i64, dili_search_f64
-from .ref import (CHILD_KEY_BITS, CHILD_KEY_BITS_F64, EMPTY_KEY_BITS,
+from .ref import (CHILD_KEY_BITS, CHILD_KEY_HI_F64, EMPTY_KEY_BITS,
                   EMPTY_KEY_BITS_F64)
 
 
@@ -94,9 +97,8 @@ def pack_tables(cols: dict, device="cuda", dtype=torch.float32,
                         f"{val_dtype}")
     kdt = _KEY_NP[dtype]
     wide = kdt is np.float64
-    bits, child, empty = ((np.int64, CHILD_KEY_BITS_F64, EMPTY_KEY_BITS_F64)
-                          if wide else
-                          (np.int32, CHILD_KEY_BITS, EMPTY_KEY_BITS))
+    bits, empty = ((np.int64, EMPTY_KEY_BITS_F64) if wide else
+                   (np.int32, EMPTY_KEY_BITS))
     a = np.asarray(cols["a"]).astype(kdt)
     b = np.asarray(cols["b"]).astype(kdt)
     base = np.asarray(cols["base"]).astype(np.int32)
@@ -126,7 +128,17 @@ def pack_tables(cols: dict, device="cuda", dtype=torch.float32,
                              fo_signed], axis=1)
     kbits = key.view(bits).copy()
     kbits[(tag == TAG_EMPTY) | ((tag == TAG_PAIR) & np.isnan(key))] = empty
-    kbits[tag == TAG_CHILD] = child
+    is_child = tag == TAG_CHILD
+    if wide:
+        # the child's signed fo in the sentinel's low half, its id and
+        # base in the val word's halves (ref.CHILD_KEY_HI_F64)
+        cid = val[is_child]
+        kbits[is_child] = ((CHILD_KEY_HI_F64 << 32)
+                           | (fo_signed[cid].astype(np.int64) & 0xFFFFFFFF))
+        val = val.copy()
+        val[is_child] = cid | (base[cid].astype(np.int64) << 32)
+    else:
+        kbits[is_child] = CHILD_KEY_BITS
     if not wide and val_dtype == torch.int64:
         # {f32 key bits, 4 bytes of padding, i64 val}: the key bits are
         # the word's low half (little-endian), zero-extended

@@ -40,6 +40,7 @@ from ..core.dili import DILI, LAMBDA, bulk_load
 from ..core.flat import flatten
 from ..device import resolve_device
 from ..kernels import ops as K
+from ..kernels.dili_search import overlay_filter
 from ..maintain import (IncrementalFlattener, LeafAccounting,
                         MaintenanceConfig, MaintenanceScheduler,
                         fold_with_accounting, run_reclusters, run_retrains)
@@ -463,6 +464,8 @@ class OnlineIndex:
         eff = ov if mg is None else mg.merged_with(ov)
         arrs = overlay_device_arrays(eff, self.store.dtype,
                                      device=self.device)
+        arrs["filter"] = overlay_filter(eff.keys,
+                                        self.store.dtype).to(self.device)
         self._ov_cache = (ov, mg, arrs)
         return arrs
 

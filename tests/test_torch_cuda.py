@@ -347,3 +347,184 @@ def test_durable_abandon_recover_on_gpu(gpu, tmp_path):
         assert not rx.lookup(dead_q)[1].any()
     finally:
         rx.close()
+
+
+# -- the i64 instances at the edges of their Hopper design -----------------
+
+
+def _mirrors(ov: dict) -> list:
+    """The overlay mirror `ov` (on the card) with its membership filter,
+    and without it: the kernel bisects the overlay on every lane then."""
+    return [ov, {k: ov[k] for k in ("keys", "vals", "tomb")}]
+
+
+@pytest.mark.parametrize("filtered", [True, False],
+                         ids=["filter", "no_filter"])
+def test_i64_instances_match_plain_version(gpu, f64_case, filtered):
+    """Both i64 instances on the standard and the DILI-LO (all leaves
+    dense) 20k builds, with the overlay mirror with and without its
+    filter, equal the plain version, at the snapshot's depth and one
+    short (a lane left standing on a node is probed if it is dense)."""
+    from repro_torch.kernels.dili_search import overlay_filter
+    kind, f, ov, q = f64_case
+    for dtype, fn in ((torch.float64, T_kernel.dili_search_f64),
+                      (torch.float32, T_kernel.dili_search_f32_i64)):
+        npt = np.float64 if dtype == torch.float64 else np.float32
+        arrs = K.kernel_arrays(f, device="cpu", dtype=dtype,
+                               val_dtype=torch.int64)
+        mirror = overlay_device_arrays(ov, dtype, device="cpu")
+        if filtered:
+            mirror["filter"] = overlay_filter(ov.keys, dtype)
+        qq = torch.from_numpy(q.astype(npt))
+        recs = (arrs["node_rec"], arrs["slot_rec"], arrs["key"])
+        for md in (arrs["max_depth"], arrs["max_depth"] - 1):
+            kw = dict(root=arrs["root"], max_depth=md)
+            want = fn(*recs, qq, ov=mirror, **kw)
+            got = fn(*(r.to(gpu) for r in recs), qq.to(gpu),
+                     ov={k: v.to(gpu) for k, v in mirror.items()}, **kw)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w), (kind, dtype, md)
+
+
+@pytest.fixture(scope="module")
+def edge_build():
+    """A 20k logn build, as f64/i64 and f32/i64 tables on the CPU."""
+    keys = generate("logn", 20_000, 13)
+    f = flatten(bulk_load(keys))
+    return keys, {
+        torch.float64: K.kernel_arrays(f, device="cpu", dtype=torch.float64),
+        torch.float32: K.kernel_arrays(f, device="cpu", dtype=torch.float32,
+                                       val_dtype=torch.int64)}
+
+
+def _edge_overlay(keys, n, fill, dtype, rng):
+    """An overlay mirror of capacity n whose first `fill` sorted keys are
+    live entries, tombstones at positions 0, 31, 32, 33 and n - 1 (where
+    filled), then +inf padding, with its membership filter."""
+    npt = np.float64 if dtype == torch.float64 else np.float32
+    mids = (keys[:-1] + keys[1:]) / 2
+    pool = np.unique(np.concatenate([
+        keys, mids, rng.uniform(keys[0], keys[-1], n)]).astype(npt))
+    k = np.full(n, np.inf, npt)
+    k[:fill] = np.sort(rng.choice(pool, fill, replace=False))
+    tomb = np.zeros(n, np.int8)
+    edges = [p for p in (0, 31, 32, 33, n - 1) if p < fill]
+    tomb[edges] = 1
+    vals = np.where(np.arange(n) < fill, np.arange(n) + 2 ** 41, 0)
+    return dict(keys=torch.from_numpy(k), vals=torch.from_numpy(vals),
+                tomb=torch.from_numpy(tomb),
+                filter=T_kernel.overlay_filter(k, dtype)), k[:fill]
+
+
+@pytest.mark.parametrize("n", [1, 64, 4096, 65536])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64_i64", "f32_i64"])
+def test_overlay_edges_match_plain_version(gpu, edge_build, dtype, n):
+    """The f64/i64 and f32/i64 instances equal the plain version with an
+    overlay empty (all +inf), partly filled and full
+    (no padding), live entries and tombstones at positions 0, 31, 32, 33
+    and n - 1, with its membership filter and without, on the overlay's
+    keys, their neighbours, snapshot keys, +-0 and +-inf and NaN
+    lanes."""
+    keys, tables = edge_build
+    arrs = tables[dtype]
+    npt = np.float64 if dtype == torch.float64 else np.float32
+    rng = np.random.default_rng(n)
+    fn = (T_kernel.dili_search_f64 if dtype == torch.float64
+          else T_kernel.dili_search_f32_i64)
+    for fill in sorted({0, min(n, 40), n}):
+        ov, live = _edge_overlay(keys, n, fill, dtype, rng)
+        q = np.concatenate([
+            live, np.nextafter(live, npt(np.inf)),
+            np.nextafter(live, npt(-np.inf)),
+            keys[rng.integers(0, len(keys), 3000)].astype(npt),
+            np.array([np.inf, -np.inf, np.nan, 0.0, -0.0, 1e30, -1e30],
+                     npt)]).astype(npt)
+        q = torch.from_numpy(q)
+        recs = (arrs["node_rec"], arrs["slot_rec"], arrs["key"])
+        kw = dict(root=arrs["root"], max_depth=arrs["max_depth"])
+        want = fn(*recs, q, ov=ov, **kw)
+        for mirror in _mirrors({k: v.to(gpu) for k, v in ov.items()}):
+            got = fn(*(r.to(gpu) for r in recs), q.to(gpu), ov=mirror, **kw)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w), (fill, len(mirror))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64_i64", "f32_i64"])
+def test_filter_finds_signed_zero(gpu, edge_build, dtype):
+    """An overlay key -0.0 is found by a +0.0 query and the reverse, with
+    the filter consulted: the filter hashes q + 0, which makes -0 +0."""
+    keys, tables = edge_build
+    arrs = tables[dtype]
+    npt = np.float64 if dtype == torch.float64 else np.float32
+    fn = (T_kernel.dili_search_f64 if dtype == torch.float64
+          else T_kernel.dili_search_f32_i64)
+    recs = (arrs["node_rec"], arrs["slot_rec"], arrs["key"])
+    kw = dict(root=arrs["root"], max_depth=arrs["max_depth"])
+    for zero in (-0.0, 0.0):
+        k = np.array([zero, 2.0] + [np.inf] * 30, npt)
+        ov = dict(keys=torch.from_numpy(k),
+                  vals=torch.arange(32, dtype=torch.int64) + 5,
+                  tomb=torch.zeros(32, dtype=torch.int8),
+                  filter=T_kernel.overlay_filter(k, dtype))
+        q = torch.from_numpy(np.array([0.0, -0.0, 2.0, 1.0], npt))
+        want = fn(*recs, q, ov=ov, **kw)
+        assert want[1][:3].all() and want[0][:2].tolist() == [5, 5]
+        for mirror in _mirrors({k: v.to(gpu) for k, v in ov.items()}):
+            got = fn(*(r.to(gpu) for r in recs), q.to(gpu), ov=mirror, **kw)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w), (zero, len(mirror))
+
+
+def test_tables_beyond_the_l2_match_plain_version(gpu):
+    """Synthetic f64 tables whose node records (2M, 64 MB) and slot
+    records (64 MB) each outgrow the 50 MB L2, with the overlay's filter
+    and without: a root
+    of 2^21 CHILD slots (each carrying its child's base and fanout) over
+    leaves of two PAIR slots.  The kernel sets no L2 persisting window, so
+    no window bounds what it reads."""
+    leaves = 1 << 21
+    keys = np.arange(2 * leaves, dtype=np.float64)
+    fo = np.concatenate([[leaves], np.full(leaves, 2)]).astype(np.int32)
+    base = np.concatenate([[0], leaves + 2 * np.arange(leaves)]).astype(
+        np.int32)
+    a = np.concatenate([[0.0], -2.0 * np.arange(leaves)])
+    b = np.concatenate([[0.5], np.ones(leaves)])
+    tag = np.concatenate([np.full(leaves, 2), np.full(2 * leaves, 1)])
+    from repro_torch.core.flat import TAG_CHILD, TAG_PAIR
+    tag = np.where(tag == 2, TAG_CHILD, TAG_PAIR).astype(np.int8)
+    key = np.concatenate([np.zeros(leaves), keys])
+    val = np.concatenate([np.arange(1, leaves + 1),
+                          np.arange(2 * leaves) * 3]).astype(np.int64)
+    arrs = K.pack_tables(dict(a=a, b=b, base=base, fo=fo,
+                              dense=np.zeros(leaves + 1, np.int8), tag=tag,
+                              key=key, val=val, root=0, max_depth=2),
+                         device="cpu", dtype=torch.float64)
+    rng = np.random.default_rng(15)
+    q = np.concatenate([keys[rng.integers(0, len(keys), 200_000)],
+                        keys[:5000] + 0.5, [np.inf, -np.inf, np.nan]])
+    q = torch.from_numpy(q)
+    ov_keys = np.array([3.0, 5.0] + [np.inf] * 62)
+    ov = dict(keys=torch.from_numpy(ov_keys),
+              vals=torch.arange(64, dtype=torch.int64),
+              tomb=torch.tensor([1, 0] + [0] * 62, dtype=torch.int8),
+              filter=T_kernel.overlay_filter(ov_keys))
+    recs = (arrs["node_rec"], arrs["slot_rec"], arrs["key"])
+    kw = dict(root=0, max_depth=2)
+    want = T_kernel.dili_search_f64(*recs, q, ov=ov, **kw)
+    assert bool(want[1][:200_000].all())
+    grecs = [r.to(gpu) for r in recs]
+    for mirror in _mirrors({k: v.to(gpu) for k, v in ov.items()}):
+        got = T_kernel.dili_search_f64(*grecs, q.to(gpu), ov=mirror, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), len(mirror)
+
+
+def test_occupancy_report(gpu):
+    """The runtime's registers and resident blocks for each instance's
+    kernel."""
+    for kern in (T_kernel.kernel, T_kernel.kernel_f64,
+                 T_kernel.kernel_f32_i64):
+        occ = kern.occupancy()
+        assert 0 < occ["regs"] <= 255 and occ["blocks_per_sm"] >= 1

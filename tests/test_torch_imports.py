@@ -1,5 +1,6 @@
 """The port stands alone: `repro_torch` imports with JAX blocked, and no
-file of it (nor chip_smoke.py) imports `jax` or the JAX package `repro`."""
+file of it (nor chip_smoke.py, nor kernel_bench.py) imports `jax` or the
+JAX package `repro`."""
 import ast
 import os
 import subprocess
@@ -10,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_bench.py"]
 
 
 def test_import_with_jax_blocked():

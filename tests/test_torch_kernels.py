@@ -506,8 +506,8 @@ def test_f64_instance_without_overlay_is_search_batch(f64_built):
 
 def test_f64_pack_tables_round_trip(f64_built):
     """`pack_tables` at f64: 32-byte node records and 16-byte slot
-    records with the 64-bit sentinels, which `unpack_tables` turns back
-    into the flat's columns."""
+    records with the 64-bit sentinels (a child's carrying its fo, id and
+    base), which `unpack_tables` turns back into the flat's columns."""
     b = f64_built
     f, t = b["f"], b["tarr"]
     nr, sr = t["node_rec"], t["slot_rec"]
@@ -524,8 +524,17 @@ def test_f64_pack_tables_round_trip(f64_built):
     np.testing.assert_array_equal(cols["key"].numpy().view(np.int64),
                                   np.asarray(f.key).view(np.int64))
     np.testing.assert_array_equal(cols["tag"].numpy(), np.asarray(f.tag))
-    kb = sr[:, 0].numpy()
-    assert (kb[np.asarray(f.tag) == TAG_CHILD] == T_ref.CHILD_KEY_BITS_F64).all()
+    kb, vb = sr[:, 0].numpy(), sr[:, 1].numpy()
+    child = np.asarray(f.tag) == TAG_CHILD
+    cid = np.asarray(f.val)[child]                 # the children's ids
+    fo_signed = np.where(np.asarray(f.dense) > 0, -np.asarray(f.fo),
+                         np.asarray(f.fo))
+    assert (kb[child] >> 32 == T_ref.CHILD_KEY_HI_F64).all()
+    np.testing.assert_array_equal(
+        (kb[child] & 0xFFFFFFFF).astype(np.uint32).view(np.int32),
+        fo_signed[cid])
+    np.testing.assert_array_equal(vb[child] & 0xFFFFFFFF, cid)
+    np.testing.assert_array_equal(vb[child] >> 32, np.asarray(f.base)[cid])
     assert (kb[np.asarray(f.tag) == TAG_EMPTY] == T_ref.EMPTY_KEY_BITS_F64).all()
     assert T_ops.column_bytes(t) == (f.n_nodes * 28 + f.n_slots * 20 + 4)
     assert T_ops.table_bytes(t) == f.n_nodes * 32 + f.n_slots * 24
@@ -739,3 +748,67 @@ def test_fma_f32_is_correctly_rounded():
         want = (want[0] if len(want) == 1 else
                 [c for c in want if not (c.view(np.int32) & 1)][0])
         assert g == want, (x, y, z, g, want)
+
+
+# ---------------------------------------------------------------------------
+# the overlay membership filter of the i64 instances
+# ---------------------------------------------------------------------------
+
+
+def test_overlay_filter_leaves_the_plain_version_alone(f64_built):
+    """On the CPU a mirror with its membership filter gives the same
+    (val, found) as without it (the plain version resolves the whole
+    overlay either way); a filter that is not int32 words, a power of
+    two and at least 32 of them, is refused."""
+    t, ov = f64_built["tarr"], f64_built["tov"]
+    q = torch.from_numpy(_f64_queries(f64_built, np.random.default_rng(34)))
+    recs = [t["node_rec"], t["slot_rec"], t["key"], q]
+    kw = dict(root=t["root"], max_depth=t["max_depth"])
+    bare = {k: ov[k] for k in ("keys", "vals", "tomb")}
+    filt = T_kernel.overlay_filter(bare["keys"].numpy())
+    want = T_kernel.dili_search_f64(*recs, ov=bare, **kw)
+    got = T_kernel.dili_search_f64(*recs, ov=dict(bare, filter=filt), **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for bad in (filt[:48], filt[:16], filt.to(torch.int64)):
+        with pytest.raises((TypeError, ValueError)):
+            T_kernel.dili_search_f64(*recs, ov=dict(bare, filter=bad), **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [1, 64, 4096, 65536])
+def test_overlay_filter_has_no_false_negatives(n, dtype):
+    """Every query equal to an overlay key (its +inf padding, duplicates
+    and -0/+0 included) finds its bit set in `overlay_filter`, so the
+    kernel skips the overlay only for queries no key equals: over
+    seeded overlays, `resolve_overlay` leaves the snapshot's result on
+    every lane whose bit is clear.  The filter has 16 bits a key, at
+    least 1024, and sets few enough that most misses skip."""
+    from repro_torch.core.search import resolve_overlay
+    npt = np.float64 if dtype == torch.float64 else np.float32
+    rng = np.random.default_rng(n + 3)
+    for fill in sorted({0, n // 2, n}):
+        extra = [0.0, -0.0, 1.5, 1.5][:min(fill, 4)]      # +-0, a duplicate
+        k = np.sort(np.concatenate([rng.normal(0, 100, fill - len(extra)),
+                                    extra]))
+        k = np.concatenate([k, np.full(n - fill, np.inf)]).astype(npt)
+        filt = T_kernel.overlay_filter(k, dtype)
+        words = filt.shape[0] * 32
+        assert words >= max(1024, 16 * n) and not words & (words - 1)
+        q = np.concatenate([k, -k, rng.normal(0, 100, 4000),
+                            [0.0, -0.0, np.inf, -np.inf, np.nan]]).astype(npt)
+        hold = T_ref.filter_may_hold(filt, q)
+        assert hold[:n].all()
+        assert hold[np.isin(q, k)].all()
+        ov = dict(keys=torch.from_numpy(k),
+                  vals=torch.from_numpy(rng.integers(0, 1 << 40, n)),
+                  tomb=torch.from_numpy((rng.random(n) < 0.3).astype(
+                      np.int8)))
+        snap_v = torch.from_numpy(rng.integers(0, 1 << 40, len(q)))
+        snap_f = torch.from_numpy(rng.random(len(q)) < 0.5)
+        v, f = resolve_overlay(ov, torch.from_numpy(q), snap_v, snap_f)
+        skip = torch.from_numpy(~hold)
+        assert torch.equal(v[skip], snap_v[skip])
+        assert torch.equal(f[skip], snap_f[skip])
+        misses = ~np.isin(q[2 * n:], k)
+        assert hold[2 * n:][misses].mean() < 0.2
