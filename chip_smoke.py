@@ -30,6 +30,15 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      default merge policy, which must merge on its own at least once,
      then flush, lookups, ranges, `items()` and one more write batch,
      each held against a numpy truth; the f64 kernel must have launched;
+     after its numbers (5), the same index is served through
+     `ServeFrontend` (4 open-loop client threads, 16-op YCSB-A requests,
+     the reference's ramp from 4000 ops/s in 2 s legs, then legs of at
+     least 1,000 lookup requests at 50% and 80% of its best achieved
+     rate), every answer recorded in commit order and replayed through
+     `WorkloadRunner`'s oracle against the journal (zero divergences);
+     prints each leg's request counts, offered and achieved rates and
+     whether it held, per-op p50/p99, the highest offered rate a leg
+     held, the mean coalesced batch and the shed share;
   5. numbers, per instance: launches during its main path; on one
      2^20-query batch the share of lanes that end at a dense leaf, the L2
      sectors the walk requests under the column layout and under the
@@ -63,7 +72,8 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      with the merge spans; prints per-merge stage times (from the trace),
      dirty fractions, publish seconds, and lookup ms with and without a
      merge in flight;
-  8. durability on the local engine at `--keys` f64 logn keys with
+  8. durability on the local engine at `--keys` f64 logn keys (at most
+     250k) with
      `IndexConfig(telemetry=True, durability=DurabilityConfig(dir=...))`
      (a fresh temporary directory, removed at the end): YCSB-A in 32
      batches of 1024 through `WorkloadRunner.run_kill_recover`, every
@@ -74,7 +84,24 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      recovered on CUDA; prints the recovery's seconds and spans, the
      replayed records, the recovery's bulk load, upsert p50/p99, the
      share of upsert time in `wal.append`, `inspect()["wal"]` and the
-     directory's bytes; the f64 kernel must have launched.
+     directory's bytes; the f64 kernel must have launched;
+  9. the sharded engine on the local path's `--keys` f64 logn keys,
+     `IndexConfig(engine="sharded", n_shards=8, telemetry=True)`: 2^20
+     lookups on the gather strategy, on a2a a uniform batch (its overflow
+     counts printed) and a batch skewed into shard 0 that must overflow
+     and come back exact through the gather fallback, 4096 range
+     queries, writes, a flush and `items()`, each held against a numpy
+     truth; shard 0's tables with the combined overlay held to the plain
+     version; prints launches per lookup, host ms, the graph-timed
+     device ms of one lookup's 8 launches against the local path's one
+     launch over the same batch, and the per-shard table bytes; the f64
+     kernel must have launched;
+ 10. background against synchronous maintenance (the reference's
+     serving config: sample_stride=4, overlay_cap=8192) on 250k
+     even-integer keys: the ramp on a background index of its own, then
+     the same YCSB-A stream offered at 0.8 of its best achieved rate to
+     a fresh index of each mode; prints lookup p50/p99 of both and their
+     ratio, then the whole script's seconds.
 The last two lines are the kernels JSON object and the `{"ok": true, ...}`
 result.  Needs `torch` with CUDA, `nvcc`, and `nvidia-smi`.
 """
@@ -102,6 +129,12 @@ PALLAS_KEYS = 250_000
 # bulk loads) joined: its bit equality with the plain version stays held
 # at the 20k builds.
 LOCAL_F32_KEYS = 250_000
+# The durable path (two bulk loads: the first build and the recovery's)
+# is cut the same way since the sharded path (a 1M bulk load of 8 shards)
+# joined; the serve comparison's two indexes take this size too.
+DURABLE_KEYS = 250_000
+SERVE_COMPARE_KEYS = 250_000
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM data sheet, non-tensor f32
 F64_FLOPS = 34e12                # H100 SXM data sheet, non-tensor f64
@@ -1233,6 +1266,485 @@ def durable_path(n_keys: int, seed: int, device) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+SHARDS = 8
+
+
+def sharded_path(n_keys: int, seed: int, device, local_timing=None) -> dict:
+    """The sharded engine on one card: `IndexConfig(engine="sharded",
+    n_shards=8, telemetry=True)` (the default merge policy) on f64 logn
+    keys (the local path's); 2^20-query lookups on the gather strategy,
+    then on a2a a uniform batch and a batch skewed into shard 0 (which
+    overflows and must come back exact through the gather fallback),
+    4096 range queries, writes in batches of 1000, a flush and `items()`,
+    each held against a numpy truth; one shard's tables with the combined
+    overlay held to the plain version bit for bit; graph-timed device ms
+    of one lookup's per-shard launches against `local_timing` (the local
+    path's tables, overlay and timed batch: one launch over the same
+    keys).  Returns the numbers it printed."""
+    from dataclasses import replace
+    import torch
+    from repro_torch.api import IndexConfig, LearnedIndex
+    from repro_torch.core import distributed as D
+    from repro_torch.data.datasets import generate
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels.dili_search import kernel_f64
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed + 6)
+    tk = generate("logn", n_keys, seed)
+    tv = np.arange(len(tk), dtype=np.int64)
+    cfg = IndexConfig(engine="sharded", n_shards=SHARDS, telemetry=True)
+    t0 = time.perf_counter()
+    ix = LearnedIndex.build(tk, tv, config=cfg, device=device)
+    build_s = time.perf_counter() - t0
+    eng = ix._engine
+    st = ix.stats()
+    if (ix.engine, st["n_shards"]) != ("sharded", SHARDS):
+        raise AssertionError(f"built {ix.engine!r} on {st['n_shards']} "
+                             f"shards")
+    shard_bytes = [K.table_bytes(t) for t in eng.arrs["kernel"]]
+    print(f"sharded: built {len(tk)} f64 keys on {SHARDS} shards in "
+          f"{build_s:.3f} s; kernel tables per shard {shard_bytes} B "
+          f"(sum {sum(shard_bytes)}), stacked pair tables "
+          f"{eng.arrs['pair_key'].nbytes + eng.arrs['pair_val'].nbytes} B; "
+          f"the reference's column layout (stats' device_bytes) "
+          f"{st['device_bytes']} B; max_depth {st['max_depth']}",
+          flush=True)
+
+    def counted_lookup(q, label):
+        before, ks0 = kernel_f64.launches, dict(ix.kernel_stats)
+        dt = check_lookup(ix, tk, tv, q, label, f32=False)
+        ks1 = ix.kernel_stats
+        return dt, kernel_f64.launches - before, {
+            k: ks1[k] - ks0[k] for k in ("lookups", "launches", "lanes",
+                                         "a2a_fallbacks")}
+
+    gather = [counted_lookup(q, "sharded gather lookup")
+              for q in lookup_batches(tk, rng, 3)]
+    print(f"sharded gather: 2^20-query lookups equal to the truth; host ms "
+          f"{[round(g[0] * 1e3, 3) for g in gather]}; kernel launches per "
+          f"lookup {[g[1] for g in gather]} (stats {gather[-1][2]})",
+          flush=True)
+    if dev.type == "cuda":                   # a CPU rehearsal skips it
+        q_np = next(lookup_batches(tk, rng, 1))
+        device_breakdown(lambda: ix.lookup(q_np))
+
+    # a2a on the same index (its config's strategy swapped in)
+    a2a_cfg = replace(cfg, lookup_strategy="a2a")
+    eng.cfg = ix.config = a2a_cfg
+    q_uni = next(lookup_batches(tk, rng, 1))
+    qd = torch.from_numpy(q_uni).to(dev)
+    ova = D.combined_overlay_arrays(eng.sd, torch.float64, dev)
+    _, _, ovf_uni = D.sharded_lookup(eng.arrs, qd, strategy="a2a",
+                                     overlay=ova)
+    uni = counted_lookup(q_uni, "sharded a2a uniform lookup")
+    lo_shard = tk[tk < eng.sd.boundaries[1]]
+    q_skew = lo_shard[rng.integers(0, len(lo_shard), 1 << 16)]
+    _, _, ovf_skew = D.sharded_lookup(
+        eng.arrs, torch.from_numpy(q_skew).to(dev), strategy="a2a",
+        overlay=ova)
+    skew = counted_lookup(q_skew, "sharded a2a skewed lookup")
+    if int(ovf_skew.sum()) == 0 or skew[2]["a2a_fallbacks"] != 1:
+        raise AssertionError(f"the skewed a2a batch did not overflow into "
+                             f"the gather fallback: {ovf_skew.tolist()}, "
+                             f"{skew[2]}")
+    print(f"sharded a2a: uniform 2^20 batch overflow per source "
+          f"{ovf_uni.tolist()} (fallbacks {uni[2]['a2a_fallbacks']}), "
+          f"host {uni[0] * 1e3:.3f} ms, {uni[1]} launches; skewed batch of "
+          f"{len(q_skew)} into shard 0 overflow per source "
+          f"{ovf_skew.tolist()}, answered exactly through the gather "
+          f"fallback ({skew[1]} launches, host {skew[0] * 1e3:.3f} ms)",
+          flush=True)
+    eng.cfg = ix.config = cfg
+    check_range(ix, tk, tv, rng, label="sharded range")
+
+    # writes under the default policy, then a flush and items()
+    mids = (tk[:-1] + tk[1:]) / 2
+    new = rng.permutation(np.setdiff1d(mids[rng.integers(0, len(mids),
+                                                         3300)], tk))
+    pick = rng.permutation(len(tk))[:3000]
+    over, dead = tk[pick[:1500]], tk[pick[1500:]]
+    n_up = 0
+
+    def write(op, keys):
+        nonlocal tk, tv, n_up
+        if op == "upsert":
+            vals = np.arange(len(keys), dtype=np.int64) + 2 ** 41 + n_up
+            n_up += len(keys)
+            ix.upsert(keys, vals)
+            nk, (nv, nt) = _apply(tk, tv, keys, vals, keys[:0])
+        else:
+            ix.delete(keys)
+            nk, (nv, nt) = _apply(tk, tv, keys[:0], tv[:0], keys)
+        tk, tv = nk[nt == 0], nv[nt == 0]
+        check_lookup(ix, tk, tv, np.concatenate([keys, tk[:4096]]),
+                     f"sharded after {op}", f32=False)
+
+    for op, keys in (("upsert", new[:1000]), ("upsert", over[:1000]),
+                     ("delete", dead[:1000])):
+        write(op, keys)
+    check_lookup(ix, tk, tv, next(lookup_batches(tk, rng, 1)),
+                 "sharded batch over pending writes", f32=False)
+    check_range(ix, tk, tv, rng, label="sharded range over pending writes")
+    st = ix.stats()
+    print(f"sharded: 3000 writes held to the truth; per-shard pending "
+          f"{st['per_shard_pending']}, epoch {st['epoch']}, merges "
+          f"{st['n_merges']}", flush=True)
+    t0 = time.perf_counter()
+    ix.flush()
+    flush_s = time.perf_counter() - t0
+    check_lookup(ix, tk, tv, next(lookup_batches(tk, rng, 1)),
+                 "sharded post-flush lookup", f32=False)
+    check_range(ix, tk, tv, rng, label="sharded post-flush range")
+    ik, iv = ix.items()
+    if not (np.array_equal(ik, tk) and np.array_equal(iv, tv)):
+        raise AssertionError("sharded items() disagrees with the truth")
+    print(f"sharded: flush {flush_s:.3f} s ({ix.maint_timings()[-1]}); "
+          f"lookups, ranges and items() equal to the truth ({len(tk)} live "
+          f"keys)", flush=True)
+    # writes left pending, then shard 0's tables with the combined overlay
+    write("upsert", np.concatenate([new[1000:1500], over[1000:1500]]))
+    write("delete", dead[1000:1500])
+    # the path's launches end here: the comparison with the plain version
+    # and the timing below do not count
+    launches = kernel_f64.launches
+    ova = D.combined_overlay_arrays(eng.sd, torch.float64, dev)
+    shard0_tables = dict(eng.arrs["kernel"][0],
+                         max_depth=eng.arrs["max_depth"])
+    shard0 = tk[tk < eng.sd.boundaries[1]]
+    print(f"f64 kernel vs plain at shard 0 of 8 ({len(shard0)} live keys) "
+          f"with the combined {ova['keys'].numel()}-entry overlay:",
+          flush=True)
+    max_err = kernel_vs_plain(shard0_tables, lane_sets(shard0, rng, dev,
+                                                   np.float64),
+                              "sharded-shard0", ov=ova)
+
+    # device time: one lookup's per-shard launches, graph-timed, against
+    # the local path's one launch over a batch of the same keys
+    out = dict(max_err=max_err, build_s=build_s, launches=launches,
+               gather_ms=[g[0] * 1e3 for g in gather],
+               launches_per_lookup=gather[-1][1])
+    if local_timing is not None:
+        l_arrs, l_ov, q = local_timing
+        owner = D._owners(eng.arrs["boundaries"], q, SHARDS)
+        order = torch.argsort(owner, stable=True)
+        counts = torch.bincount(owner, minlength=SHARDS + 1).tolist()
+        qs = q[order]
+        offs = np.concatenate([[0], np.cumsum(counts)])
+        slices = [qs[offs[r]: offs[r + 1]] for r in range(SHARDS)
+                  if counts[r]]
+        shards = [r for r in range(SHARDS) if counts[r]]
+
+        def sharded_launches():
+            for r, s in zip(shards, slices):
+                D._search_shard(eng.arrs, r, s, ova, None)
+
+        def whole_batch_launches():
+            # the reference's shape: every shard searches every lane
+            for r in range(SHARDS):
+                D._search_shard(eng.arrs, r, q, ova, None)
+
+        rounds = graph_rounds({"sharded": sharded_launches,
+                               "local": lambda: pair(l_arrs, q, ov=l_ov)})
+        whole = graph_rounds({"whole": whole_batch_launches}, rounds=3,
+                             reps=5)["whole"]
+        out.update(sharded_dev_ms=float(np.median(rounds["sharded"])),
+                   local_dev_ms=float(np.median(rounds["local"])),
+                   whole_dev_ms=float(np.median(whole)))
+        print(f"sharded device time of one 2^20-query gather lookup: the "
+              f"{len(shards)} per-shard launches {out['sharded_dev_ms']:.5f} "
+              f"ms (rounds {[round(x, 5) for x in rounds['sharded']]}) "
+              f"against the local path's one launch over the same batch "
+              f"{out['local_dev_ms']:.5f} ms (rounds "
+              f"{[round(x, 5) for x in rounds['local']]}); lanes per shard "
+              f"{counts[:SHARDS]}; every shard over the whole batch, as the "
+              f"reference's shard_map body searches, "
+              f"{out['whole_dev_ms']:.5f} ms (rounds "
+              f"{[round(x, 5) for x in whole]})", flush=True)
+    ix.close()
+    return out
+
+
+class Recorder:
+    """The index as a `ServeFrontend`'s batcher sees it: each facade call
+    is passed on and its answer kept, in commit order."""
+
+    def __init__(self, ix):
+        self.ix = ix
+        self.answers = []
+
+    @property
+    def telemetry(self):
+        return self.ix.telemetry
+
+    def lookup(self, q):
+        out = self.ix.lookup(q)
+        self.answers.append(out)
+        return out
+
+    def range(self, lo, hi, max_hits):
+        out = self.ix.range(lo, hi, max_hits=max_hits)
+        self.answers.append(out)
+        return out
+
+    def upsert(self, keys, vals):
+        self.ix.upsert(keys, vals)
+        self.answers.append(None)
+
+    def delete(self, keys):
+        self.ix.delete(keys)
+        self.answers.append(None)
+
+
+class Served:
+    """A served run's recorded answers handed to `WorkloadRunner` in
+    commit order, so that its oracle checks each answer the clients got
+    against the content the journal's prefix defines: `items()` is the
+    content before serving at the runner's start and the served index's
+    after it."""
+
+    def __init__(self, start_items, recorder):
+        self.start = start_items
+        self.rec = recorder
+        self.i = 0
+        self.engine = recorder.ix.engine
+
+    def items(self):
+        if self.start is not None:
+            start, self.start = self.start, None
+            return start
+        return self.rec.ix.items()
+
+    def _next(self):
+        self.i += 1
+        return self.rec.answers[self.i - 1]
+
+    def lookup(self, q):
+        return self._next()
+
+    def range(self, lo, hi, max_hits):
+        return self._next()
+
+    def upsert(self, keys, vals):
+        self._next()
+
+    def delete(self, keys):
+        self._next()
+
+    def stats(self):
+        return self.rec.ix.stats()
+
+
+SERVE_START_RATE = 4000.0        # the reference's benchmarks/run.py
+SERVE_LEG_S = 2.0
+SERVE_REQ_OPS = 16
+SERVE_CLIENTS = 4
+SERVE_LEG_MAX_OPS = 20_000
+# a measured leg holds at least this many lookup requests, so that its p99
+# is the 10th-slowest lookup and not the slowest
+SERVE_TAIL_LOOKUPS = 1000
+SERVE_KEEP_UP = 0.9              # saturation_search's keep_up_frac
+SERVE_SHED_TOL = 0.01            # and its shed_tol
+
+
+def _leg_ops(rate: float) -> int:
+    return int(np.clip(rate * SERVE_LEG_S, 1000, SERVE_LEG_MAX_OPS))
+
+
+def _held(rep) -> bool:
+    """Whether a leg kept up with its offered rate, by saturation_search's
+    own test."""
+    return (rep.achieved_ops_per_s >= SERVE_KEEP_UP * rep.offered_ops_per_s
+            and rep.shed_frac <= SERVE_SHED_TOL)
+
+
+def _leg_line(rep) -> str:
+    """A leg's requests per op, offered and achieved rates, whether it
+    held, shed share and per-op p50/p99."""
+    lat = rep.latency_ms()
+    return (f"{rep.n_reqs} requests ("
+            + ", ".join(f"{v['count']} {op}" for op, v in lat.items())
+            + f"), offered {rep.offered_ops_per_s:.1f} ops/s, achieved "
+            f"{rep.achieved_ops_per_s:.1f} "
+            f"({'held' if _held(rep) else 'fell behind'}), shed "
+            f"{rep.shed_frac:.4f}: "
+            + "; ".join(f"{op} p50/p99 {v['ms_p50']:.3f}/{v['ms_p99']:.3f} "
+                        f"ms" for op, v in lat.items()))
+
+
+class StreamTap:
+    """One YCSB-A stream consumed front to back, regenerated with the next
+    seed when it runs dry (the reference's `_StreamTap`)."""
+
+    def __init__(self, keys, seed):
+        self.keys, self.seed = keys, seed
+        self._refill()
+
+    def _refill(self):
+        from repro_torch.workloads import PRESETS, generate_stream
+        spec = PRESETS["ycsb_a"].scaled(n_ops=SERVE_LEG_MAX_OPS,
+                                        batch_size=SERVE_REQ_OPS,
+                                        seed=self.seed)
+        self.batches = generate_stream(spec, self.keys)
+        self.seed += 1
+        self.i = 0
+
+    def take(self, n_ops: int = 0, n_lookups: int = 0) -> list:
+        """The next requests, until they hold `n_ops` ops and `n_lookups`
+        lookup requests."""
+        out, got, looks = [], 0, 0
+        while got < n_ops or looks < n_lookups:
+            if self.i >= len(self.batches):
+                self._refill()
+            b = self.batches[self.i]
+            self.i += 1
+            out.append(b)
+            got += b.n_ops
+            looks += b.op == "lookup"
+        return out
+
+
+def _lat(rep, op="lookup") -> tuple:
+    lat = rep.latency_ms().get(op, {})
+    return lat.get("ms_p50", float("nan")), lat.get("ms_p99", float("nan"))
+
+
+def serve_path(ix, seed: int) -> dict:
+    """Serve the local path's index through `ServeFrontend`: 4 open-loop
+    client threads, 16-op YCSB-A requests, the reference's ramp
+    (`saturation_search` from 4000 ops/s, 2 s legs, doubling), then two
+    measured legs of at least `SERVE_TAIL_LOOKUPS` lookup requests each at
+    50% and 80% of the ramp's best achieved rate.  Each leg is reported
+    with its request counts and whether it held its offered rate; the
+    sustained rate is the highest offered rate of a leg that held.  Every
+    facade answer is recorded in commit order and replayed through
+    `WorkloadRunner`'s oracle against the journal (zero divergences, and
+    the final content equal).  Returns the numbers."""
+    from repro_torch.serve import (ServeConfig, ServeFrontend, open_loop,
+                                   saturation_search)
+    from repro_torch.workloads import WorkloadRunner
+    start = ix.items()
+    keys = start[0]
+    rec = Recorder(ix)
+    fe = ServeFrontend(rec, ServeConfig(), journal=True)
+    tap = StreamTap(keys, seed + 11)
+    t0 = time.perf_counter()
+    best, ramp = saturation_search(
+        fe, lambda leg: tap.take(_leg_ops(SERVE_START_RATE * 2.0 ** leg)),
+        SERVE_START_RATE, factor=2.0, max_legs=7, n_clients=SERVE_CLIENTS,
+        keep_up_frac=SERVE_KEEP_UP, shed_tol=SERVE_SHED_TOL)
+    legs = {}
+    for frac in (0.5, 0.8):
+        legs[frac] = open_loop(fe, tap.take(n_lookups=SERVE_TAIL_LOOKUPS),
+                               frac * best, n_clients=SERVE_CLIENTS,
+                               timeout_s=300.0)
+    serve_s = time.perf_counter() - t0
+    journal = fe.journal_batches()
+    stats = fe.stats()
+    fe.close()
+    if len(journal) != len(rec.answers):
+        raise AssertionError(f"serve: {len(journal)} journal batches for "
+                             f"{len(rec.answers)} facade calls")
+    t0 = time.perf_counter()
+    rep = WorkloadRunner(Served(start, rec), verify_writes=False).run(
+        journal, name="serve,ycsb_a")
+    replay_s = time.perf_counter() - t0
+    if rep.divergences or rep.n_ops != stats["completed_ops"]:
+        raise AssertionError(f"serve: {len(rep.divergences)} divergences, "
+                             f"{rep.n_ops} ops replayed of "
+                             f"{stats['completed_ops']}")
+    for r in ramp:
+        print(f"serve ramp leg: {_leg_line(r)}", flush=True)
+    held = [r.offered_ops_per_s for r in ramp + list(legs.values())
+            if _held(r)]
+    sustained = max(held) if held else float("nan")
+    out = dict(ramp_best=best, sustained=sustained,
+               batch_ops_mean=stats["batch_ops_mean"],
+               shed_frac=stats["shed_frac"], journal=len(journal))
+    for frac, r in legs.items():
+        print(f"serve leg at {int(frac * 100)}% of the ramp's best achieved "
+              f"rate: {_leg_line(r)}", flush=True)
+        lat = r.latency_ms()
+        out[f"leg_{int(frac * 100)}"] = dict(
+            n_reqs=r.n_reqs, offered=r.offered_ops_per_s,
+            achieved=r.achieved_ops_per_s, held=_held(r),
+            **{op: (v["count"], v["ms_p50"], v["ms_p99"])
+               for op, v in lat.items()})
+    print(f"serve: the ramp's best achieved rate {best:.1f} ops/s "
+          f"(saturation_search's return; {sum(map(_held, ramp))} of its "
+          f"{len(ramp)} legs held); the highest offered rate a leg held "
+          f"{sustained:.1f} ops/s; mean coalesced batch "
+          f"{stats['batch_ops_mean']:.2f} ops over {stats['n_batches']} "
+          f"batches; shed share {stats['shed_frac']:.5f}; the journal's "
+          f"{len(journal)} batches ({rep.n_ops} ops) replayed through the "
+          f"oracle in {replay_s:.1f} s: 0 divergences, final items() "
+          f"equal; serving took {serve_s:.1f} s", flush=True)
+    return out
+
+
+def serve_compare_path(n_keys: int, seed: int, device) -> dict:
+    """Background against synchronous maintenance under the same offered
+    load, on the even-integer universe of `n_keys` keys and the
+    reference's serving config (`benchmarks/run.py::_serve_index`:
+    sample_stride=4, overlay_cap=8192, `MaintenanceConfig(background=
+    True|False)`).  The reference's ramp runs on an index of its own with
+    background maintenance; then a fresh index of each mode serves the
+    same YCSB-A requests (at least `SERVE_TAIL_LOOKUPS` lookup requests)
+    at 0.8 of the ramp's best achieved rate, as the reference builds a
+    fresh index for each mode.  Lookup p50/p99 of each and their ratio."""
+    from repro_torch.api import IndexConfig, LearnedIndex, MaintenanceConfig
+    from repro_torch.serve import (ServeConfig, ServeFrontend, open_loop,
+                                   saturation_search)
+    keys = np.arange(0, 2 * n_keys, 2, dtype=np.float64)
+
+    def build(bg: bool):
+        t0 = time.perf_counter()
+        ix = LearnedIndex.build(keys, config=IndexConfig(
+            sample_stride=4, overlay_cap=8192,
+            maintenance=MaintenanceConfig(background=bg)), device=device)
+        return ix, time.perf_counter() - t0
+
+    ramp_ix, _ = build(True)
+    fe = ServeFrontend(ramp_ix, ServeConfig(), journal=False)
+    tap = StreamTap(keys, seed + 13)
+    best, ramp = saturation_search(
+        fe, lambda leg: tap.take(_leg_ops(SERVE_START_RATE * 2.0 ** leg)),
+        SERVE_START_RATE, factor=2.0, max_legs=7, n_clients=SERVE_CLIENTS,
+        keep_up_frac=SERVE_KEEP_UP, shed_tol=SERVE_SHED_TOL)
+    fe.close()
+    ramp_ix.close()
+    for r in ramp:
+        print(f"serve compare ramp leg (background): {_leg_line(r)}",
+              flush=True)
+    rate = 0.8 * best
+    out = dict(ramp_best=best, rate=rate, n_keys=n_keys)
+    for label, bg in (("background", True), ("sync", False)):
+        ix, build_s = build(bg)
+        cfe = ServeFrontend(ix, ServeConfig(), journal=False)
+        ctap = StreamTap(keys, seed + 1531)       # the same stream for both
+        before = ix.stats()["n_merges"]
+        rep = open_loop(cfe, ctap.take(n_lookups=SERVE_TAIL_LOOKUPS), rate,
+                        n_clients=SERVE_CLIENTS, timeout_s=240.0)
+        cfe.close()
+        ix.flush()
+        p50, p99 = _lat(rep)
+        out[label] = dict(p50=p50, p99=p99, n_reqs=rep.n_reqs,
+                          achieved=rep.achieved_ops_per_s, held=_held(rep),
+                          shed=rep.shed_frac, n_ops=rep.n_ops,
+                          merges=ix.stats()["n_merges"] - before)
+        print(f"serve compare, maintenance={label} (fresh index, build "
+              f"{build_s:.1f} s), at 0.8 of the ramp's best achieved rate "
+              f"{best:.1f}: {rep.n_ops} ops, merges "
+              f"{out[label]['merges']}; {_leg_line(rep)}", flush=True)
+        ix.close()
+    out["p99_sync_over_background"] = out["sync"]["p99"] / out[
+        "background"]["p99"]
+    print(f"serve compare: lookup p99 sync / background "
+          f"{out['p99_sync_over_background']:.3f} (the JAX package's CPU "
+          f"run in BENCH_PR2.json: 557.6 / 61.4 ms = 9.08 at 12,377 ops/s)",
+          flush=True)
+    return out
+
+
 def make_overlay(keys: np.ndarray, rng, device, n_up: int = 1000,
                  n_dead: int = 600, dtype=None, cap: int = 64):
     """An overlay mirror of upserts (new keys between neighbours, and
@@ -1783,6 +2295,19 @@ def main() -> int:
           f"{info['upload_s']:.3f} s, flush {info['flush_s']:.3f} s; merges "
           f"{info['merge_reasons']}; facade lookup ms per batch in the main "
           f"path {[round(x, 3) for x in info['lookup_ms']]}", flush=True)
+    # kept for the sharded path's device-time comparison
+    local_timing = (arrs, ov, q)
+
+    # -- 4c. the serving front-end over the local index, counted --------------
+    kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
+    serve = serve_path(ix, args.seed)
+    launches_serve = kernel_f64.launches
+    if launches_serve == 0:
+        raise AssertionError("the serve path launched the f64 kernel no "
+                             "time")
+    print(f"serve: f64 kernel launches {launches_serve} (f32: "
+          f"{kernel.launches}, f32/i64: {kernel_f32_i64.launches})",
+          flush=True)
     ix.close()
     entry64 = dict(
         name="dili_search_f64", route="cuda",
@@ -1791,6 +2316,7 @@ def main() -> int:
         launches=launches_f64, max_abs_err=max_err64, ms=t64["ms"],
         plain_ms=t64["plain_ms"], bound_ms=bound64_ms, bound_by=bound64_by,
         library_ms=library64_ms)
+    entry64["launches"] += launches_serve
 
     del ix, arrs, ov, flat, pk, pv, q, rp, oi
     torch.cuda.empty_cache()
@@ -1892,7 +2418,7 @@ def main() -> int:
     # -- 8. durability: kill and recover on the local engine, counted ---------
     kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
     t0 = time.perf_counter()
-    durable_path(args.keys, args.seed, dev)
+    durable_path(min(args.keys, DURABLE_KEYS), args.seed, dev)
     durable_s = time.perf_counter() - t0
     launches_dur = kernel_f64.launches
     if launches_dur == 0:
@@ -1902,6 +2428,45 @@ def main() -> int:
           f"{kernel.launches}, f32/i64: {kernel_f32_i64.launches}); the "
           f"path took {durable_s:.1f} s", flush=True)
     entry64["launches"] += launches_dur
+
+    # -- 9. the sharded engine, counted --------------------------------------
+    kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
+    sharded = sharded_path(args.keys, args.seed, dev, local_timing)
+    launches_sharded = sharded["launches"]
+    if launches_sharded == 0:
+        raise AssertionError("the sharded path launched the f64 kernel no "
+                             "time")
+    print(f"sharded: f64 kernel launches {launches_sharded} on the path, "
+          f"{kernel_f64.launches} with the comparison and timing (f32: "
+          f"{kernel.launches}, f32/i64: {kernel_f32_i64.launches})",
+          flush=True)
+    entry64["launches"] += launches_sharded
+    entry64["max_abs_err"] = max(entry64["max_abs_err"], sharded["max_err"])
+    del local_timing
+    torch.cuda.empty_cache()
+
+    # -- 10. serving: background against sync maintenance, counted ----------
+    kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
+    compare = serve_compare_path(min(args.keys, SERVE_COMPARE_KEYS),
+                                 args.seed, dev)
+    launches_cmp = kernel_f64.launches
+    if launches_cmp == 0:
+        raise AssertionError("the serve compare path launched the f64 "
+                             "kernel no time")
+    print(f"serve compare: f64 kernel launches {launches_cmp} (f32: "
+          f"{kernel.launches}, f32/i64: {kernel_f32_i64.launches})",
+          flush=True)
+    entry64["launches"] += launches_cmp
+    print(f"summary: serve on the local 1M index: the ramp's best "
+          f"achieved rate {serve['ramp_best']:.1f} ops/s, the highest "
+          f"offered rate a leg held {serve['sustained']:.1f} ops/s; sharded "
+          f"lookup "
+          f"{sharded['launches_per_lookup']} launches, device "
+          f"{sharded['sharded_dev_ms']:.5f} ms against local "
+          f"{sharded['local_dev_ms']:.5f} ms; background/sync lookup p99 "
+          f"{compare['background']['p99']:.3f}/{compare['sync']['p99']:.3f} "
+          f"ms; the whole script {time.perf_counter() - T_START:.1f} s",
+          flush=True)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [entry32, entry64, entry32l]}), flush=True)

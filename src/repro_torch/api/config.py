@@ -43,10 +43,9 @@ class IndexConfig:
     """Configuration for `repro_torch.api.LearnedIndex`.
 
     engine            : "local" (the default: f64 or f32 keys, the
-                        kernel instance with the overlay fused in) and
-                        "pallas" (the f32 kernel engine) run on this port;
-                        "sharded" is a valid name that raises
-                        NotImplementedError at build.
+                        kernel instance with the overlay fused in),
+                        "pallas" (the f32 kernel engine) or "sharded"
+                        (key-range shards on the one device).
     dtype             : key/model dtype (numpy or torch); None picks the
                         engine default (f64 for local/sharded, f32 for
                         pallas).
@@ -56,14 +55,24 @@ class IndexConfig:
     maintenance       : `MaintenanceConfig` switching the merge to the
                         adaptive pipeline (splice flatten, retrains,
                         re-clusters) and, on the local engine only,
-                        background merges (background on "pallas" is a
-                        ValueError, as in the reference).  None = full
-                        flatten merges.
+                        background merges (background on "pallas" or
+                        "sharded" is a ValueError, as in the reference).
+                        None = full flatten merges.
     overlay_cap       : initial tombstone-overlay capacity (doubles).
     sample_stride     : bulk-load sampling stride (Alg. 4, Table 13).
     bulk_kw           : extra `core.dili.bulk_load` kwargs.
-    n_shards, mesh_axis, lookup_strategy : sharded engine knobs (kept for
-                        the JSON round-trip).
+    n_shards          : the sharded engine's shard count.  The reference
+                        clamps it to its mesh's device count
+                        (`min(n_shards or len(jax.devices()), ...)`); here
+                        every shard lives on the one card, so the count is
+                        `max(1, min(n_shards or 1, len(keys) // 2))`:
+                        None gives one shard, as on a one-device
+                        reference process, and 8 gives the reference's
+                        8-device mesh.
+    mesh_axis         : accepted for the round-trip; no effect (no mesh).
+    lookup_strategy   : the sharded lookup, "gather" (exact) or "a2a"
+                        (capacity-bounded buckets, falling back to gather
+                        on an overflow).
     interpret         : accepted for the round-trip; no effect (no Pallas).
     vmem_budget_bytes : accepted for the round-trip; no effect — the CUDA
                         kernel serves every table size.

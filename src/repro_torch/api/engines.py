@@ -1,7 +1,7 @@
 """Engines behind `repro_torch.api.LearnedIndex` (port of
 `repro/api/engines.py`).
 
-Two of the reference's three engines are ported:
+The reference's three engines are ported:
 
   * `LocalEngine` (`IndexConfig()`'s default): f64 (or, with
     `dtype=float32`, f32) keys and int64 payloads over
@@ -22,7 +22,11 @@ Two of the reference's three engines are ported:
     pipeline on the writer's thread.  Its `name` stays "pallas", so
     configs and `stats()` read as the reference's.
 
-The sharded engine comes in a later slice (see ROADMAP.md).
+  * `ShardedEngine`: f64 (or f32) keys and int64 payloads over
+    `core.distributed`'s range shards, all on one device: per-shard
+    overlays and merges, and lookups that run one launch of the f64/i64
+    (or f32/i64) instance per shard with the combined overlay resolved
+    in it, on the reference's gather or a2a strategy.
 
 Range queries are overlay-exact: the device bisects the key-sorted pair
 table with enough headroom to cover pending tombstones, then the (small,
@@ -31,11 +35,14 @@ sorted) overlay window is merged host-side per query.
 
 from __future__ import annotations
 
+import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..core import distributed as D
 from ..core import search as S
 from ..core.dili import bulk_load, placement_dtype
 from ..core.flat import flatten, merge_sorted_runs
@@ -770,4 +777,328 @@ class KernelEngine(EngineTelemetryBase):
                     device_bytes=self.snap.nbytes)
 
 
-ENGINE_CLASSES = {"local": LocalEngine, "pallas": KernelEngine}
+# ---------------------------------------------------------------------------
+# ShardedEngine
+# ---------------------------------------------------------------------------
+
+
+class _ShardView(NamedTuple):
+    """What a sharded read resolves against, published as one object: the
+    shards' device copy and the per-shard overlays that go with it (a merge
+    replaces both together, so a lock-free reader never pairs the old
+    tables with the emptied overlays)."""
+    arrs: dict
+    overlays: tuple
+
+
+class ShardedEngine(EngineTelemetryBase):
+    """Range-sharded engine on one device: quantile range partitioning,
+    per-shard tombstone overlays, lookups on the gather or a2a strategy
+    with the combined overlay resolved in each shard's kernel launch
+    (`core.distributed`), and single-shard merges + republish.  Query
+    batches are padded to a shard multiple with +inf (guaranteed misses)
+    and unpadded on the way out, so callers never see the shard count.
+
+    The reference clamps its shard count to its mesh's device count; here
+    every shard lives on the one card, so `n_shards` is honoured up to
+    half the key count (each shard's bulk load needs 2 keys), and None
+    gives one shard, as on a one-device reference process.
+
+    `kernel_stats` counts, since build, `lookups` (engine calls),
+    `launches` (shard searches: one kernel launch each on the card, the
+    plain version on the CPU), `lanes` (queries sent to them) and
+    `a2a_fallbacks` (a2a batches that overflowed and were answered on the
+    gather path), and gives `table_bytes`, the shards' kernel records as
+    uploaded — port only."""
+
+    name = "sharded"
+
+    def __init__(self, keys: np.ndarray, vals: np.ndarray, cfg: IndexConfig,
+                 device="cuda"):
+        self.cfg = cfg
+        self.telemetry = Telemetry(enabled=cfg.telemetry)
+        _reject_background(cfg, self.name)
+        self.device = resolve_device(device)
+        # every shard's bulk_load needs >= 2 keys; a tiny index (e.g. a
+        # freshly warmed session table) clamps to fewer shards rather than
+        # crashing — it grows back onto more shards at the next build
+        n = max(1, min(cfg.n_shards or 1, len(keys) // 2))
+        self.sd = D.build_sharded(keys, vals, n_shards=n,
+                                  overlay_cap=cfg.overlay_cap,
+                                  keep_host=True, **cfg.bulk_load_kw())
+        m = cfg.maintenance
+        self._flatteners = ([IncrementalFlattener() for _ in range(n)]
+                            if m is not None and m.incremental else None)
+        self._accounting = ([LeafAccounting(m) for _ in range(n)]
+                            if m is not None and (m.retrain or m.recluster)
+                            else None)
+        self.n_flattens = n                      # build flattened every shard
+        self.n_full_flattens = n
+        self.n_incremental_flattens = 0
+        self.n_merges = 0
+        self.n_retrains = 0
+        self.n_reclusters = 0
+        self.last_dirty_frac = 1.0
+        self.n_publishes = 1
+        self._timings: list[dict] = []
+        self._writes_since_publish = 0
+        self._writes_since_pressure = 0
+        self._stats = dict(lookups=0, launches=0, lanes=0, a2a_fallbacks=0)
+        self._stats_lock = threading.Lock()
+        self._view = _ShardView(
+            D.to_device(self.sd, self.device, dtype=cfg.resolved_dtype),
+            tuple(self.sd.overlays))
+
+    @property
+    def arrs(self) -> dict:
+        """The published device copy (`core.distributed.to_device`)."""
+        return self._view.arrs
+
+    def _pad(self, x) -> tuple[np.ndarray, int]:
+        x = np.atleast_1d(np.asarray(x, np.float64))
+        pad = (-len(x)) % self.sd.n_shards
+        if pad:
+            x = np.concatenate([x, np.full(pad, np.inf)])
+        return x, len(x) - pad
+
+    # -- reads --------------------------------------------------------------
+
+    def lookup(self, queries):
+        q, n = self._pad(queries)
+        dt = self.cfg.resolved_dtype
+        qd = S._t(q, dt, self.device)
+        view = self._view               # tables and overlays, read once
+        ova = D.combined_overlay_arrays(self.sd, dt, self.device,
+                                        overlays=view.overlays)
+        arrs = view.arrs
+        st = dict(lookups=1, a2a_fallbacks=0)
+        out = D.sharded_lookup(arrs, qd, strategy=self.cfg.lookup_strategy,
+                               overlay=ova, stats=st)
+        if self.cfg.lookup_strategy == "a2a" and int(out[2].sum()) > 0:
+            # a2a buckets are capacity-bounded; overflowed lanes come back
+            # found=False.  The facade's contract is exact results, so a
+            # skewed batch that overflows re-resolves on the (always-exact)
+            # gather path instead of silently reporting misses.
+            st["a2a_fallbacks"] = 1
+            out = D.sharded_lookup(arrs, qd, strategy="gather", overlay=ova,
+                                   stats=st)
+        with self._stats_lock:          # readers may call from many threads
+            for k, n in st.items():
+                self._stats[k] += n
+        v, f = out[0], out[1]
+        return (v.cpu().numpy().astype(np.int64, copy=False)[:n],
+                f.cpu().numpy().astype(bool, copy=False)[:n])
+
+    def range(self, lo, hi, max_hits):
+        lo_p, n = self._pad(lo)
+        hi_p, _ = self._pad(hi)
+        dt = self.cfg.resolved_dtype
+        view = self._view               # tables and overlays, read once
+
+        def device_range(_lo, _hi, fetch):
+            # the shard-multiple padded batch, as the reference's
+            # collective needs; results are sliced back to the caller's n
+            ks, vs, cnt = D.sharded_range_query(
+                view.arrs, S._t(lo_p, dt, self.device),
+                S._t(hi_p, dt, self.device), max_hits=fetch)
+            return (ks.cpu().numpy()[:n], vs.cpu().numpy()[:n],
+                    cnt.cpu().numpy()[:n])
+
+        return _overlay_exact_range(D.overlay_entries(view.overlays),
+                                    lo_p[:n], hi_p[:n], max_hits,
+                                    device_range)
+
+    def get(self, key: float):
+        k = float(key)
+        r = int(D.shard_of(self.sd, np.array([k]))[0])
+        state, v = self.sd.overlays[r].get(k)
+        if state == 0:
+            return v
+        if state == 1:
+            return None
+        return self.sd.dilis[r].search(k)
+
+    # -- writes -------------------------------------------------------------
+
+    def upsert(self, keys, vals):
+        D.sharded_upsert(self.sd, keys, vals)
+        self._view = self._view._replace(overlays=tuple(self.sd.overlays))
+        self._note_writes(len(np.atleast_1d(keys)))
+
+    def delete(self, keys):
+        D.sharded_delete(self.sd, keys)
+        self._view = self._view._replace(overlays=tuple(self.sd.overlays))
+        self._note_writes(len(np.atleast_1d(keys)))
+
+    def _note_writes(self, n: int):
+        p = self.cfg.merge
+        self._writes_since_publish += n
+        self._writes_since_pressure += n
+        trigger = (self._writes_since_publish >= p.max_writes
+                   or any(ov.full_fraction >= p.max_fill
+                          for ov in self.sd.overlays))
+        if (not trigger
+                and self._writes_since_pressure >= p.pressure_check_every):
+            self._writes_since_pressure = 0
+            trigger = any(
+                ov.count and (adjust_pressure(d, ov, p.pressure_min_pending)
+                              > p.pressure_lambda)
+                for d, ov in zip(self.sd.dilis, self.sd.overlays))
+        if trigger:
+            self.flush()
+
+    def _fold_shard(self, r: int, dili, ov) -> None:
+        # always the sharded_merge fold hook, so the per-shard fold (and
+        # any retrains) land as per-shard merge.fold/retrain spans
+        if self._accounting is None:
+            with self.telemetry.span("merge.fold", shard=r):
+                fold_overlay(dili, ov)
+            return
+        acct = self._accounting[r]
+        with self.telemetry.span("merge.fold", shard=r):
+            fold_with_accounting(dili, ov, acct)
+        with self.telemetry.span("merge.retrain", shard=r):
+            self.n_retrains += run_retrains(dili, acct)
+        fl = self._flatteners[r] if self._flatteners is not None else None
+        with self.telemetry.span("merge.recluster", shard=r):
+            n = run_reclusters(dili, acct, fl)
+        if n:
+            self.n_reclusters += n
+            if self.telemetry.enabled:
+                self.telemetry.metrics.count("maint.reclusters", n)
+
+    def _flatten_shard(self, r: int, dili):
+        with self.telemetry.span("merge.flatten", shard=r):
+            if self._flatteners is None:
+                flat = flatten(dili)
+                dili.take_dirty()   # drain (a full flatten supersedes it)
+                self.n_full_flattens += 1
+                return flat
+            fl = self._flatteners[r]
+            flat = fl.flatten(dili, dili.take_dirty())
+        if fl.last_incremental:
+            self.n_incremental_flattens += 1
+        else:
+            self.n_full_flattens += 1
+        return flat
+
+    def flush(self):
+        """Fold every shard with pending writes and republish the device
+        copy, re-packing only the merged shards' kernel records.  (A
+        policy trigger folds all pending shards too — the merge itself is
+        still per-shard row rewrites, no global rebuild.)"""
+        t0 = time.perf_counter()
+        merged = D.sharded_merge(self.sd, max_fill=0.0,
+                                 fold_fn=self._fold_shard,
+                                 flatten_fn=self._flatten_shard)
+        if merged:
+            incremental = False
+            if self._flatteners is not None:
+                fls = [self._flatteners[r] for r in merged]
+                self.last_dirty_frac = (
+                    sum(f.last_dirty_rows for f in fls)
+                    / max(sum(f.last_total_rows for f in fls), 1))
+                # honest labeling: a flush is incremental only if every
+                # merged shard actually spliced (cold caches full-flatten)
+                incremental = all(f.last_incremental for f in fls)
+            total_slots = sum(f.n_slots for f in self.sd.flats)
+            self.telemetry.sample_publish(
+                n_segments=sum(f.n_segments for f in self.sd.flats),
+                dirty_rows=(sum(f.last_dirty_rows
+                                for f in self._flatteners)
+                            if self._flatteners is not None
+                            else total_slots),
+                total_rows=(sum(f.last_total_rows
+                                for f in self._flatteners)
+                            if self._flatteners is not None
+                            else total_slots))
+            merge_s = time.perf_counter() - t0
+            self.n_merges += 1
+            self.n_flattens += len(merged)
+            self._writes_since_publish = 0
+            self._writes_since_pressure = 0
+            t0 = time.perf_counter()
+            with self.telemetry.span("merge.publish", shards=len(merged)):
+                arrs = D.to_device(self.sd, self.device,
+                                   dtype=self.cfg.resolved_dtype,
+                                   prev=self.arrs, shards=merged)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                # readers saw the pre-merge tables with the pre-merge
+                # overlays until here
+                self._view = _ShardView(arrs, tuple(self.sd.overlays))
+            self.n_publishes += 1
+            self._timings.append(dict(
+                merge_s=merge_s, publish_s=time.perf_counter() - t0,
+                incremental=incremental,
+                dirty_frac=self.last_dirty_frac))
+            self._notify_publish()
+
+    # -- introspection ------------------------------------------------------
+
+    def _n_forced_full_flattens(self) -> int:
+        if self._flatteners is None:
+            return 0
+        return sum(fl.n_fallback_full for fl in self._flatteners)
+
+    @property
+    def n_wal_shards(self) -> int:
+        return self.sd.n_shards
+
+    def shard_ids(self, keys: np.ndarray) -> np.ndarray:
+        return np.asarray(
+            D.shard_of(self.sd, np.atleast_1d(np.asarray(keys, np.float64))),
+            np.int64)
+
+    def items(self):
+        snap_k = np.concatenate([f.pair_key for f in self.sd.flats])
+        snap_v = np.concatenate([f.pair_val for f in self.sd.flats])
+        ok, ovv, ott = D.overlay_entries(self.sd.overlays)
+        return _merged_items(snap_k, snap_v, ok, ovv, ott)
+
+    @property
+    def kernel_stats(self) -> dict:
+        with self._stats_lock:
+            st = dict(self._stats)
+        return dict(st, table_bytes=sum(
+            K.table_bytes(t) for t in self.arrs["kernel"]))
+
+    @property
+    def host(self):
+        return self.sd.dilis
+
+    @property
+    def epoch(self) -> int:
+        # publish-count semantics, like the other engines (a fresh build
+        # is epoch 1 and every effective flush bumps it); `sd.epoch`
+        # (merge count) stays internal
+        return self.n_publishes
+
+    def _timing_rows(self) -> list[dict]:
+        return list(self._timings)
+
+    def _stats_overlays(self):
+        return self.sd.overlays
+
+    def _inspect_flats(self) -> list:
+        return list(self.sd.flats)
+
+    def _inspect_flatteners(self) -> list:
+        return list(self._flatteners or ())
+
+    def _inspect_accounts(self) -> list:
+        return list(self._accounting or ())
+
+    def _stats_extra(self) -> dict:
+        return dict(max_depth=self.sd.max_depth,
+                    n_shards=self.sd.n_shards,
+                    snapshot_keys=sum(int(f.n_pairs) for f in self.sd.flats),
+                    per_shard_pending=[ov.count for ov in self.sd.overlays],
+                    n_publishes=self.n_publishes,
+                    # the reference's stacked column upload
+                    device_bytes=D.column_bytes(self.sd,
+                                                self.cfg.resolved_dtype))
+
+
+ENGINE_CLASSES = {"local": LocalEngine, "pallas": KernelEngine,
+                  "sharded": ShardedEngine}

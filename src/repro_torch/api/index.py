@@ -11,19 +11,21 @@
     ix.flush()                         # fold + republish (Alg. 7/8)
     ix.save("index.npz"); ix2 = LearnedIndex.load("index.npz")
 
-Two engines run: "local" (the default: f64 keys, or f32 with
+Three engines run: "local" (the default: f64 keys, or f32 with
 `dtype=float32`, int64 payloads, one launch of the lookup kernel with the
 overlay resolve fused in, and the adaptive maintenance pipeline with
-background merges when `IndexConfig.maintenance` asks for it) and
-"pallas" (f32 keys through the f32 kernel instance, maintenance on the
-writer's thread).  `inspect()` returns the `dili.inspect/1` document and
-`start_trace`/`dump_trace` export the `dili.trace/1` causal trace.
+background merges when `IndexConfig.maintenance` asks for it), "pallas"
+(f32 keys through the f32 kernel instance, maintenance on the writer's
+thread) and "sharded" (the keys split into `n_shards` key ranges, all on
+the one device, each searched by its own launch of the f64/i64 instance;
+maintenance on the writer's thread).  `inspect()` returns the
+`dili.inspect/1` document and `start_trace`/`dump_trace` export the
+`dili.trace/1` causal trace.
 `IndexConfig(durability=DurabilityConfig(dir=...))` arms the write-ahead
 log and checkpoints, and `LearnedIndex.recover(dir)` rebuilds an index
 after a crash; both use the reference's on-disk formats, as do
 `save`/`load`.  The engine runs on CUDA unless `build(..., device="cpu")`
-(`recover` and `load` take the same argument).  The sharded engine raises
-NotImplementedError until its slice lands (see ROADMAP.md).
+(`recover` and `load` take the same argument).
 """
 
 from __future__ import annotations
@@ -39,11 +41,6 @@ import numpy as np
 from ..durability.wal import OP_DELETE, OP_UPSERT
 from .config import IndexConfig
 from .engines import ENGINE_CLASSES
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet; "
-                               f"see ROADMAP.md ({item})")
 
 
 class LearnedIndex:
@@ -81,9 +78,6 @@ class LearnedIndex:
         cfg = config or IndexConfig()
         if overrides:
             cfg = replace(cfg, **overrides)
-        if cfg.engine not in ENGINE_CLASSES:
-            raise _not_ported(f"engine={cfg.engine!r}",
-                              "item 7, the sharded engine")
         keys = np.atleast_1d(np.asarray(keys, np.float64))
         if vals is None:
             vals = np.arange(len(keys), dtype=np.int64)

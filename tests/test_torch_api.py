@@ -1,12 +1,15 @@
-"""The port's facade on the `local` and `pallas` engines against the JAX
-package's.
+"""The port's facade on the `local`, `pallas` and `sharded` engines
+against the JAX package's.
 
 One call sequence runs on `repro.api.LearnedIndex(engine=...)` and on
 `repro_torch.api.LearnedIndex(engine=..., device="cpu")`; every answer
 must be equal at every step (bit-exact: int64 payloads, bools, and keys
-copied unchanged).  The facade tests run on both ported engines; the
+copied unchanged).  The facade tests run on the three engines; the
 f32-domain ones (key collisions, int32 payloads, `kernel_eligible`) are
-the `pallas` engine's own.
+the `pallas` engine's own.  In this process JAX sees one device, so the
+reference's sharded engine runs one shard, as the port's does with
+`n_shards` unset; tests/test_torch_distributed.py holds 8 shards against
+an 8-device mesh.
 """
 import json
 import warnings
@@ -19,7 +22,7 @@ from repro_torch import api as T
 from tests.conftest import make_keys
 
 
-ENGINES = ("pallas", "local")
+ENGINES = ("pallas", "local", "sharded")
 
 
 def _cfg(pkg, merge=None, engine="pallas", **kw):
@@ -225,17 +228,21 @@ def test_config_json_round_trips_across_packages(engine):
 
 
 def test_unported_paths_raise(tmp_path):
-    """What is still to come raises NotImplementedError naming ROADMAP:
-    the sharded engine.  Background maintenance on the pallas engine is a
-    config error in both packages."""
+    """Every engine now builds: the sharded engine, the last to raise
+    NotImplementedError, answers on the CPU.  Background maintenance on
+    the pallas and sharded engines is a config error in both packages."""
     keys = np.arange(100, dtype=np.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.LearnedIndex.build(keys, engine="sharded", device="cpu")
-    for pkg, kw in ((J, {}), (T, {"device": "cpu"})):
-        with pytest.raises(ValueError, match="background"):
-            pkg.LearnedIndex.build(keys, config=_cfg(
-                pkg, maintenance=pkg.MaintenanceConfig(background=True)),
-                **kw)
+    t = T.LearnedIndex.build(keys, engine="sharded", n_shards=4,
+                             device="cpu")
+    assert t.engine == "sharded" and t.stats()["n_shards"] == 4
+    v, f = t.lookup(keys)
+    assert f.all() and np.array_equal(v, np.arange(100))
+    for engine in ("pallas", "sharded"):
+        for pkg, kw in ((J, {}), (T, {"device": "cpu"})):
+            with pytest.raises(ValueError, match="background"):
+                pkg.LearnedIndex.build(keys, config=_cfg(
+                    pkg, maintenance=pkg.MaintenanceConfig(background=True),
+                    engine=engine), **kw)
     # what this list held until the durability slice and runs now:
     # durability, recover, save and load
     d = str(tmp_path / "dur")

@@ -74,11 +74,18 @@ def gen_ops() -> list[tuple[str, np.ndarray, np.ndarray | None]]:
     return ops
 
 
+#: the sharded engine's shard count in the child (per-shard WALs), as the
+#: reference's crash matrix runs its sharded child on 4 devices
+SHARDED_SHARDS = 4
+
+
 def make_config(engine: str, dur_dir: str) -> IndexConfig:
     # manual merges + explicit flush: the checkpoint-hit schedule is then
     # deterministic (hit 1 = build base, hit 2 = first flush's publish)
     return IndexConfig(engine=engine, merge=manual_merge_policy(),
                        overlay_cap=256,
+                       n_shards=SHARDED_SHARDS if engine == "sharded"
+                       else None,
                        durability=DurabilityConfig(dir=dur_dir,
                                                    fsync="always"))
 
@@ -231,6 +238,10 @@ def main(argv=None) -> int:
 ENGINES = ("local", "pallas")
 POST_CKPT_POINTS = (("wal.append", FLUSH_AFTER_OPS + 3),
                     ("wal.mid_record", FLUSH_AFTER_OPS + 1))
+# the sharded engine's points: a write splits into one record per shard,
+# so only the points that count facade writes or checkpoints apply
+SHARDED_POINTS = (("wal.append", FLUSH_AFTER_OPS + 3),
+                  ("ckpt.mid_publish", 2))
 
 
 def test_workload_is_crashkits():
@@ -263,6 +274,36 @@ def test_crash_matrix(tmp_path, engine, point, hits):
     r = run_point(engine, str(tmp_path / "dur"), point, hits)
     if (point, hits) == ("wal.append", 2):
         assert r["replayed_records"] >= 2     # pre-checkpoint tail replayed
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("point,hits", SHARDED_POINTS)
+def test_sharded_crash_recovers_in_both(tmp_path, point, hits):
+    """The sharded engine's child (4 shards, one WAL each) dies at a
+    point; the port recovers it on 4 shards, and the reference, on this
+    process's one JAX device, recovers it elastically onto one shard."""
+    import shutil
+    from repro.api import LearnedIndex as JLearnedIndex
+    d = str(tmp_path / "dur")
+    proc = spawn_child("sharded", d, point, hits)
+    assert proc.returncode == -9, proc.stderr[-4000:]
+    shutil.copytree(d, str(tmp_path / "copy"))
+    assert len(os.listdir(os.path.join(d, "wal"))) == SHARDED_SHARDS
+    want = expected_oracle(point, hits)
+    ix = LearnedIndex.recover(d, device="cpu")
+    try:
+        assert ix.stats()["n_shards"] == SHARDED_SHARDS
+        check_recovered(ix, want, "port, 4 shards")
+    finally:
+        ix.close()
+    jx = JLearnedIndex.recover(str(tmp_path / "copy"))
+    try:
+        assert jx.stats()["n_shards"] == 1
+        k, v = jx.items()
+        np.testing.assert_array_equal(k, want.items()[0])
+        np.testing.assert_array_equal(v, want.items()[1])
+    finally:
+        jx.close()
 
 
 @pytest.mark.slow

@@ -528,3 +528,130 @@ def test_occupancy_report(gpu):
                  T_kernel.kernel_f32_i64):
         occ = kern.occupancy()
         assert 0 < occ["regs"] <= 255 and occ["blocks_per_sm"] >= 1
+
+
+# -- the sharded engine and the serving front-end (on the card) ---------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("strategy", ["gather", "a2a"])
+def test_sharded_facade_on_gpu_matches_cpu(gpu, strategy, dtype):
+    """8 shards on the card answer as on the CPU (the plain version), bit
+    for bit, through writes, ranges, a flush and a skewed a2a batch; each
+    lookup launches the f64/i64 (f32/i64) instance once a shard."""
+    rng = np.random.default_rng(21)
+    keys = generate("logn", 30_000, 21)
+    cfg = IndexConfig(engine="sharded", n_shards=8, dtype=dtype,
+                      lookup_strategy=strategy)
+    ixs = [LearnedIndex.build(keys, config=cfg, device=d)
+           for d in ("cpu", "cuda")]
+    kern = (T_kernel.kernel_f64 if dtype == torch.float64
+            else T_kernel.kernel_f32_i64)
+    mids = (keys[:-1] + keys[1:]) / 2
+    q = np.concatenate([keys[rng.integers(0, len(keys), 6000)],
+                        mids[rng.integers(0, len(mids), 2000)]])
+    skew = keys[rng.integers(0, len(keys) // 8, 4096)]
+    lo, hi = keys[:700:7], keys[40:740:7]
+
+    def same(a, b):
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y)
+
+    for step in range(3):
+        for ix in ixs:
+            ix.upsert(mids[step * 900: step * 900 + 800], np.arange(800)
+                      + 2 ** 35)
+            ix.delete(keys[step * 900 + 800: step * 900 + 900])
+        before = kern.launches
+        fell_back = ixs[1].kernel_stats["a2a_fallbacks"]
+        same(*(ix.lookup(q) for ix in ixs))
+        # one launch a shard, and 8 more where an a2a bucket overflowed
+        # (the facade's pow2 pad lanes repeat q[0] into one bucket)
+        fell_back = ixs[1].kernel_stats["a2a_fallbacks"] - fell_back
+        assert kern.launches - before == 8 * (1 + fell_back)
+        same(*(ix.range(lo, hi, max_hits=32) for ix in ixs))
+        same(*(ix.lookup(skew) for ix in ixs))
+    for ix in ixs:
+        ix.flush()
+    same(*(ix.lookup(q) for ix in ixs))
+    same(*(ix.items() for ix in ixs))
+    ks = ixs[1].kernel_stats
+    assert ks["launches"] > 0 and ks["table_bytes"] > 0
+    if strategy == "a2a":
+        assert ks["a2a_fallbacks"] >= 3          # the skewed batches
+
+
+def test_sharded_a2a_overflow_on_gpu_matches_cpu(gpu):
+    """The raw a2a lookup on the card: a skewed batch overflows its
+    buckets, and values, found flags and the per-source overflow counts
+    equal the plain version's."""
+    from repro_torch.core import distributed as TD
+    keys = generate("logn", 30_000, 22)
+    sd = TD.build_sharded(keys, None, n_shards=8)
+    rng = np.random.default_rng(22)
+    q = np.concatenate([keys[rng.integers(0, len(keys) // 8, 3000)],
+                        keys[rng.integers(0, len(keys), 1000)],
+                        [np.inf] * 96])
+    out = []
+    for dev in ("cpu", "cuda"):
+        arrs = TD.to_device(sd, dev)
+        res = TD.sharded_lookup(arrs, torch.from_numpy(q).to(dev),
+                                strategy="a2a")
+        out.append([x.cpu() for x in res])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert int(out[1][2].sum()) > 0
+
+
+@pytest.mark.parametrize("engine", ["local", "sharded"])
+def test_serve_on_gpu_replays_against_the_oracle(gpu, engine):
+    """A short concurrent serve run on the card: 4 client threads through
+    `ServeFrontend`, then the commit-order journal replayed through the
+    oracle-checked `WorkloadRunner` on a fresh index on the card, which
+    must end with the served index's content."""
+    import threading
+    from repro_torch.serve import ServeConfig, ServeFrontend
+    from repro_torch.workloads import WorkloadRunner
+    n = 4000
+    keys = np.arange(0, 2 * n, 2, dtype=np.float64)
+    cfg = IndexConfig(engine=engine, n_shards=8 if engine == "sharded"
+                      else None)
+    ix = LearnedIndex.build(keys, config=cfg, device="cuda")
+    fe = ServeFrontend(ix, ServeConfig(dwell_s=2e-4))
+    errors = []
+
+    def client(ci):
+        try:
+            c = fe.client(f"c{ci}")
+            r = np.random.default_rng(ci)
+            base = float(2 * n + 1 + 100_000 * ci)
+            for step in range(40):
+                c.upsert([base + 2 * step], [step])
+                assert c.get(base + 2 * step) == step
+                v, f = c.lookup(keys[r.integers(0, n, 16)])
+                assert f.all()
+                if step % 4 == 3:
+                    c.delete([base + 2 * (step - 1)])
+        except BaseException as e:       # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(ci,))
+               for ci in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120.0)
+    fe.drain()
+    journal = fe.journal_batches()
+    fe.close()
+    assert not errors, errors[:2]
+    fresh = LearnedIndex.build(keys, config=cfg, device="cuda")
+    try:
+        rep = WorkloadRunner(fresh).run(journal, name=f"serve-{engine}")
+        assert rep.divergences == []
+        for a, b in zip(ix.items(), fresh.items()):
+            assert np.array_equal(a, b)
+    finally:
+        fresh.close()
+        ix.close()

@@ -3,7 +3,9 @@ the `ft` checkpoint protocol) against the JAX package's, on the CPU.
 
 The scenarios of the reference's tests/test_durability.py,
 tests/test_api_persistence.py and tests/test_ft_checkpoint.py run on the
-port (`device="cpu"`, on the `local` and `pallas` engines), and the two
+port (`device="cpu"`, on the `local`, `pallas` and `sharded` engines,
+the sharded one on a single shard as the reference's in this one-device
+process; tests/test_torch_distributed.py holds 8 shards), and the two
 packages are held to each other on disk: the same op stream writes
 byte-identical WAL segments and equal checkpoints, a directory written by
 either recovers in the other to equal `items()`, and the recovery
@@ -34,7 +36,7 @@ from repro_torch.ft import checkpoint as ftck
 from repro_torch.workloads import (PRESETS, SortedOracle, WorkloadRunner,
                                    generate_stream)
 
-ENGINES = ("local", "pallas")
+ENGINES = ("local", "pallas", "sharded")
 CPU = {"device": "cpu"}
 
 
@@ -421,8 +423,9 @@ def test_load_truncated_file_raises_not_garbage(tmp_path):
 
 # (engine, merge policy): the local engine under manual merges and under
 # the default policy (whose fill, lag and pressure merges decide the epoch
-# each WAL record carries), and the pallas engine
-STREAMS = (("local", "manual"), ("local", "default"), ("pallas", "manual"))
+# each WAL record carries), the pallas engine and the sharded engine
+STREAMS = (("local", "manual"), ("local", "default"), ("pallas", "manual"),
+           ("sharded", "manual"))
 
 
 def _stream_keys():

@@ -4,8 +4,9 @@ JAX package's, on the CPU.
 `inspect()` is computed from host columns (the published `FlatDILI`, the
 splice flattener's segment rows, the accounting's heat), so after the
 same call sequence the port's `dili.inspect/1` document equals the
-reference's value for value, on both ported engines, with maintenance on
-and off.  The `dili.trace/1` export holds wall times, so there the key
+reference's value for value, on the three engines (the sharded one on a
+single shard, as the reference's in this one-device process), with
+maintenance on and off.  The `dili.trace/1` export holds wall times, so there the key
 tree, the event names and their counts are compared, not the times.
 """
 import json
@@ -17,7 +18,7 @@ from repro import api as JA
 from repro_torch import api as TA
 from repro_torch.obs import INSPECT_SCHEMA_VERSION, TRACE_SCHEMA_VERSION
 
-ENGINES = ("local", "pallas")
+ENGINES = ("local", "pallas", "sharded")
 
 
 def _universe(n=4096, seed=0):

@@ -395,7 +395,14 @@ def test_unmappable_dirty_id_counts_forced_full_flatten():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("engine", ["local", "pallas"])
+def _flats(ix):
+    """The engine's published flats (one per shard on "sharded")."""
+    e = ix._engine
+    return {"local": lambda: [e.oi.store.flat], "pallas": lambda: [e.flat],
+            "sharded": lambda: list(e.sd.flats)}[e.name]()
+
+
+@pytest.mark.parametrize("engine", ["local", "pallas", "sharded"])
 def test_facade_maintenance_rounds_equal(engine):
     """Write rounds under the default merge policy with the adaptive
     pipeline on: after every round the published flat, the lookups,
@@ -418,9 +425,10 @@ def test_facade_maintenance_rounds_equal(engine):
         for ix in (j, t):
             ix.upsert(up, np.arange(len(up), dtype=np.int64) + rnd)
             ix.delete(dead)
-        fj, ft = ((ix._engine.oi.store.flat if engine == "local"
-                   else ix._engine.flat) for ix in (j, t))
-        flat_equal(ft, fj, f"round {rnd}")
+        fj, ft = (_flats(ix) for ix in (j, t))
+        assert len(fj) == len(ft)
+        for a, b in zip(ft, fj):
+            flat_equal(a, b, f"round {rnd}")
         stats_equal(j, t)
         q = np.concatenate([up, dead, keys[:500]])
         same(j.lookup(q), t.lookup(q))
@@ -432,14 +440,18 @@ def test_facade_maintenance_rounds_equal(engine):
     assert kinds[0] == kinds[1]
     st = t.stats()
     assert st["n_incremental_flattens"] >= 3 and st["n_reclusters"] > 0
-    assert st["n_forced_full_flattens"] == 0 and st["maint_errors"] == 0
+    # the reference's sharded engine forces one full flatten here (an
+    # unmappable dirty id after a re-cluster); the port's does the same
+    assert st["n_forced_full_flattens"] == j.stats()[
+        "n_forced_full_flattens"] == (1 if engine == "sharded" else 0)
+    assert st["maint_errors"] == 0
     cj, ct = (ix.metrics()["counters"] for ix in (j, t))
     assert cj == ct and ct["maint.reclusters"] == st["n_reclusters"]
     for ix in (j, t):
         ix.close()
 
 
-@pytest.mark.parametrize("engine", ["local", "pallas"])
+@pytest.mark.parametrize("engine", ["local", "pallas", "sharded"])
 def test_on_publish_fires_after_each_merge(engine):
     """`set_on_publish`: the hook runs once per merge publish, after the
     flip (it sees the new epoch), on both engines, as in the reference."""
@@ -573,10 +585,11 @@ def test_kernel_counters_lose_no_update_under_reader_threads():
 
 def test_background_rejected_off_local():
     U = np.arange(0, 400, 2, dtype=np.float64)
-    with pytest.raises(ValueError, match="background maintenance"):
-        TA.LearnedIndex.build(U, config=TA.IndexConfig(
-            engine="pallas", maintenance=TA.MaintenanceConfig(
-                background=True)), device="cpu")
+    for eng in ("pallas", "sharded"):
+        with pytest.raises(ValueError, match="background maintenance"):
+            TA.LearnedIndex.build(U, config=TA.IndexConfig(
+                engine=eng, maintenance=TA.MaintenanceConfig(
+                    background=True)), device="cpu")
 
 
 def test_failed_merge_restores_pending_writes(monkeypatch):

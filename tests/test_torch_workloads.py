@@ -5,11 +5,12 @@ The generator, the oracle and the runner are copies of the reference's:
 every preset's stream is byte-identical from both packages, and the
 reference's tests/test_workloads.py scenarios run on the port — the
 stream contracts, the oracle against a brute-force dict, and the
-differential grid (presets x the `local` and `pallas` engines, every
-batch diffed against the oracle, zero divergences), the runner's fault
-detection, and a kill-and-recover replay through the port's durability.
-Keys follow the integer-key convention (f32-exact), so every comparison
-is bit-exact on both engines.
+differential grid (presets x the `local`, `pallas` and `sharded`
+engines, every batch diffed against the oracle, zero divergences; the
+sharded engine on 8 shards), the runner's fault detection, and a
+kill-and-recover replay through the port's durability.  Keys follow the
+integer-key convention (f32-exact), so every comparison is bit-exact on
+every engine.
 """
 import numpy as np
 import pytest
@@ -23,7 +24,7 @@ from repro_torch.workloads import (PRESETS, SortedOracle, WorkloadDivergence,
                                    generate_stream, run_preset,
                                    stream_op_counts)
 
-ENGINES = ("local", "pallas")
+ENGINES = ("local", "pallas", "sharded")
 UNIVERSE = np.arange(0, 6000, 2, dtype=np.float64)    # f32-exact even ints
 
 
@@ -203,7 +204,8 @@ def test_oracle_range_padding_conventions():
 # differential acceptance grid: presets x engines, zero divergence
 # ---------------------------------------------------------------------------
 
-GRID_SIZES = {"local": (1500, 64), "pallas": (600, 64)}
+GRID_SIZES = {"local": (1500, 64), "pallas": (600, 64),
+              "sharded": (480, 32)}
 GRID_PRESETS = ("ycsb_a", "ycsb_e", "dili_paper",
                 "shift_fb_logn", "ttl_storm")
 MAINT_PRESETS = ("shift_fb_logn", "ttl_storm")
@@ -215,6 +217,7 @@ def test_differential_grid(engine, preset):
     n_ops, bs = GRID_SIZES[engine]
     spec = PRESETS[preset].scaled(n_ops=n_ops, batch_size=bs, seed=13)
     ix = _build(UNIVERSE, engine=engine, overlay_cap=512,
+                n_shards=8 if engine == "sharded" else None,
                 maintenance=(MaintenanceConfig()
                              if preset in MAINT_PRESETS else None))
     report = WorkloadRunner(ix).run(generate_stream(spec, UNIVERSE),
