@@ -110,9 +110,9 @@ def _pad_pow2(x: np.ndarray, fill) -> np.ndarray:
 def _t(x: np.ndarray, dtype, device) -> torch.Tensor:
     """numpy -> tensor of `dtype` on `device` (the cast happens in numpy,
     round-to-nearest-even like the reference's upload)."""
-    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
-    return torch.from_numpy(np.ascontiguousarray(
-        np.asarray(x).astype(np_dtype))).to(device)
+    x = np.asarray(x).astype(torch.empty(0, dtype=dtype).numpy().dtype)
+    return torch.from_numpy(np.ascontiguousarray(x)).reshape(x.shape).to(
+        device)
 
 
 def device_arrays(flat: FlatDILI, dtype=torch.float64, pad: bool = True,

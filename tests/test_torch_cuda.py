@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.api import IndexConfig, LearnedIndex, manual_merge_policy
+from repro_torch.core import baselines as TB
 from repro_torch.core.dili import bulk_load
 from repro_torch.core.flat import flatten
 from repro_torch.data.datasets import generate
@@ -655,3 +656,41 @@ def test_serve_on_gpu_replays_against_the_oracle(gpu, engine):
     finally:
         fresh.close()
         ix.close()
+
+
+@pytest.fixture(scope="module")
+def competitor_case():
+    keys = generate("logn", 20_000, 5)
+    mids = (keys[:-1] + keys[1:]) / 2
+    edges = [-np.inf, np.inf, np.nan, keys[0] - 1, keys[-1] + 1, 1e300,
+             -1e300, 3e9]
+    return keys, np.concatenate([keys, mids, edges])
+
+
+@pytest.mark.parametrize("name,dtype", [
+    (B.name, dt) for B in TB.ALL_BASELINES
+    for dt in ((torch.float64,) if B is TB.LIPP
+               else (torch.float64, torch.float32))],
+    ids=lambda x: x if isinstance(x, str) else str(x).split(".")[-1])
+def test_competitor_on_gpu_matches_cpu(gpu, competitor_case, name, dtype):
+    """Each competitor's (vals, found, probes) on the card equal the same
+    torch code on the CPU; LIPP's values come from one launch of the
+    f64/i64 kernel there and from its plain version here."""
+    B = next(B for B in TB.ALL_BASELINES if B.name == name)
+    keys, q = competitor_case
+    st = B.build(keys, np.arange(len(keys)))
+    with np.errstate(over="ignore"):        # ±1e300 in f32 is ±inf
+        qt = torch.from_numpy(q.astype(np.float64 if dtype == torch.float64
+                                       else np.float32))
+    want = B.lookup(B.device(st, dtype=dtype, device="cpu"), qt)
+    before = T_kernel.kernel_f64.launches
+    got = B.lookup(B.device(st, dtype=dtype, device=gpu), qt.to(gpu))
+    torch.cuda.synchronize()
+    assert T_kernel.kernel_f64.launches == before + (B is TB.LIPP)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+    if dtype == torch.float64:
+        assert bool(want[1][:len(keys)].all())
+        assert torch.equal(want[0][:len(keys)].long(),
+                           torch.arange(len(keys)))
