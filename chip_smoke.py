@@ -63,9 +63,10 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      ranges and `items()` to the key set; the f32/i64 kernel must have
      launched, and its numbers follow as in 5;
   7. background maintenance on the local engine at `--keys` f64 logn
-     keys: 12 rounds of 2048 scrambled-zipfian upserts (YCSB-A's update
-     draw) and 500 deletes, each round's lookups held to the truth, at
-     least one started while a merge was in flight; then the flush
+     keys, on a copy of the local path's bulk load: 12 rounds of 2048
+     scrambled-zipfian upserts (YCSB-A's update draw) and 500 deletes,
+     each round's lookups held to the truth, at least one started while
+     a merge was in flight; then the flush
      barrier, `items()`, at least one incremental flatten and re-cluster,
      no forced full flatten, no maintenance error, not degraded,
      `inspect()`'s `dili.inspect/1` key tree and a `dili.trace/1` export
@@ -115,8 +116,24 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      numpy in and out, kernel launches a lookup (profiler) and mean
      probes (Table 5).  The competitors are eager torch ops, tens to
      hundreds of launches each, and DILI one launch: this is not the
-     paper's comparison of compiled indexes.  Then the whole script's
-     seconds.
+     paper's comparison of compiled indexes;
+ 12. llm serve (the LLM serving path, `repro_torch/launch/serve.py`): the
+     six assigned architectures' reduced configs in f32, weights from the
+     port's seeded init, prefill and 4 greedy decode steps on the card and
+     on the CPU (equal tokens, logits within 1e-4, TF32 off); then
+     granite-8b at full width and depth in bf16 served by the launcher (16
+     requests, batch 8, prompt 32, 8 tokens, 4 front-end threads, the
+     session table on the card, whose lookups must launch the f64/i64
+     kernel): every session resolved to the KV slot its admit returned,
+     finite logits, tokens in range; the f64/i64 kernel against its plain
+     version on the session table's tables and overlay and each batch's
+     ids as those lookups read them;
+     prints the init seconds, tok/s, the front-end's batches and shed
+     share, weight bytes and peak memory, prefill of [8, 32] and decode
+     ms a step on CUDA events beside their bounds, and the device's busy
+     share in each; then decode against the full forward at
+     granite-8b's width with 2 layers in f32 (2e-2 relative).  Then the
+     whole script's seconds.
 The last two lines are the kernels JSON object and the `{"ok": true, ...}`
 result.  Needs `torch` with CUDA, `nvcc`, and `nvidia-smi`.
 """
@@ -124,6 +141,7 @@ result.  Needs `torch` with CUDA, `nvcc`, and `nvidia-smi`.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -558,22 +576,57 @@ def main_path(n_keys: int, seed: int, device) -> tuple:
     return ix, tk, tv, info
 
 
-def local_path(n_keys: int, seed: int, device) -> tuple:
+@contextlib.contextmanager
+def bulk_load_kept(keep: dict):
+    """The local engine's bulk load (Alg. 4, on the host), kept across
+    builds inside the block: the first tree built is pickled as it came
+    out of `bulk_load`, with its keys, vals and settings (the pickling's
+    seconds in keep["pickle_s"]); a later build of the same keys, vals and
+    settings gets an unpickled copy of that tree, which is what a second
+    bulk load would build, instead of building it again."""
+    import pickle
+    from repro_torch.online import merge as M
+    real = M.bulk_load
+
+    def bulk_load(keys, vals, **kw):
+        if "tree" in keep:
+            if not (kw == keep["kw"] and np.array_equal(keys, keep["keys"])
+                    and np.array_equal(vals, keep["vals"])):
+                raise AssertionError("the kept bulk load is of other keys, "
+                                     "vals or settings")
+            return pickle.loads(keep["tree"])
+        tree = real(keys, vals, **kw)
+        t0 = time.perf_counter()
+        keep.update(keys=np.array(keys), vals=np.array(vals), kw=dict(kw),
+                    tree=pickle.dumps(tree, protocol=pickle.HIGHEST_PROTOCOL))
+        keep["pickle_s"] = time.perf_counter() - t0
+        return tree
+
+    M.bulk_load = bulk_load
+    try:
+        yield
+    finally:
+        M.bulk_load = real
+
+
+def local_path(n_keys: int, seed: int, device, keep: dict) -> tuple:
     """The local engine with the defaults users get: build on f64 logn
     keys, read, write in batches of 1000 under the default merge policy
     (which must merge on its own), flush, read and list, and leave one
     more round of writes pending; every answer held against a numpy
-    truth after every write batch.  Returns (index, truth keys, truth
-    vals, info)."""
+    truth after every write batch.  The bulk load is kept in `keep` for
+    the maintenance path (`bulk_load_kept`).  Returns (index, truth keys,
+    truth vals, info)."""
     from repro_torch.api import IndexConfig, LearnedIndex
     from repro_torch.data.datasets import generate
     rng = np.random.default_rng(seed + 2)
     tk = generate("logn", n_keys, seed)
     tv = np.arange(len(tk), dtype=np.int64)
     t0 = time.perf_counter()
-    ix = LearnedIndex.build(tk, tv, config=IndexConfig(telemetry=True),
-                            device=device)
-    total_s = time.perf_counter() - t0
+    with bulk_load_kept(keep):
+        ix = LearnedIndex.build(tk, tv, config=IndexConfig(telemetry=True),
+                                device=device)
+    total_s = time.perf_counter() - t0 - keep["pickle_s"]
     if ix.engine != "local":
         raise AssertionError(f"IndexConfig() built {ix.engine!r}")
     spans = ix.metrics()["spans"]
@@ -868,11 +921,13 @@ RECLUSTER_MIN_ROWS = 256
 RECLUSTER_TARGET_PAIRS = 64
 
 
-def maint_path(n_keys: int, seed: int, device, rounds: int = 12) -> dict:
+def maint_path(n_keys: int, seed: int, device, keep: dict,
+               rounds: int = 12) -> dict:
     """Background maintenance on the local engine: build f64 logn keys
     with `IndexConfig(telemetry=True, maintenance=MaintenanceConfig(
     background=True, ...))` (the re-cluster sizes above, the rest
-    default), then `rounds` rounds of 2048 scrambled-zipfian
+    default) on the local path's bulk load of the same keys (`keep`, see
+    `bulk_load_kept`), then `rounds` rounds of 2048 scrambled-zipfian
     upserts (YCSB-A's update draw, theta 0.99) and 500 deletes under the
     default merge policy, each round's lookups held to the numpy truth,
     one batch while a merge may be in flight and one after the worker
@@ -888,12 +943,15 @@ def maint_path(n_keys: int, seed: int, device, rounds: int = 12) -> dict:
     keys = generate("logn", n_keys, seed)
     tk, tv = keys.copy(), np.arange(len(keys), dtype=np.int64)
     t0 = time.perf_counter()
-    ix = LearnedIndex.build(tk, tv, config=IndexConfig(
-        telemetry=True, maintenance=MaintenanceConfig(
-            background=True, recluster_min_rows=RECLUSTER_MIN_ROWS,
-            recluster_target_pairs=RECLUSTER_TARGET_PAIRS)), device=device)
+    with bulk_load_kept(keep):
+        ix = LearnedIndex.build(tk, tv, config=IndexConfig(
+            telemetry=True, maintenance=MaintenanceConfig(
+                background=True, recluster_min_rows=RECLUSTER_MIN_ROWS,
+                recluster_target_pairs=RECLUSTER_TARGET_PAIRS)),
+            device=device)
     print(f"maint: built {len(tk)} f64 keys with background maintenance in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+          f"{time.perf_counter() - t0:.3f} s on a copy of the local path's "
+          f"bulk load", flush=True)
     oi = ix._engine.oi
     ix.start_trace()
     zeta = ZetaCache(DEFAULT_THETA)
@@ -1951,6 +2009,297 @@ def competitors_path(keys: np.ndarray, flat, dili_build_s: float,
     return dict(launches=launches, max_err=max_err, order=order)
 
 
+LLM_ARCH = "granite-8b"          # the launcher's default architecture
+LLM_STEPS = 4                    # greedy decode steps of the reduced archs
+LLM_ATOL = 1e-4                  # reduced archs' f32 logits, card vs CPU
+LLM_DECODE_RTOL = 2e-2           # tests/test_models.py's decode property
+LLM_SERVE_ARGV = ["--arch", LLM_ARCH, "--requests", "16", "--batch", "8",
+                  "--prompt-len", "32", "--tokens", "8",
+                  "--frontend-threads", "4"]
+LLM_TIMED_STEPS = 16             # decode steps between two CUDA events
+BF16_FLOPS = 989e12              # H100 SXM data sheet, dense bf16
+
+
+def llm_inputs(cfg, B: int, S: int, seed: int, device) -> tuple:
+    """Tokens [B, S] and the frontend stubs (vlm patches, whisper frames)
+    from a numpy seed, on `device`."""
+    import torch
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    kw = {}
+    if cfg.family == "vlm":
+        kw["extra_embeds"] = rng.standard_normal(
+            (B, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        kw["enc_frames"] = rng.standard_normal(
+            (B, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+    return (torch.from_numpy(tokens).to(device),
+            {k: torch.from_numpy(v).to(device) for k, v in kw.items()})
+
+
+def llm_reduced_vs_cpu(seed: int, device) -> float:
+    """Each assigned architecture's reduced config in f32, weights from the
+    port's seeded init on the CPU moved to `device`: prefill of [2, 12] and
+    LLM_STEPS greedy decode steps there and on the CPU.  Greedy tokens must
+    be equal and every logit within LLM_ATOL.  Returns the largest gap."""
+    import torch
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models import model as MDL
+    from repro_torch.train import step as STEP
+    B, S = 2, 12
+    worst = 0.0
+    for arch in list_archs():
+        cfg = get_config(arch).reduced()
+        runs = []
+        for d in ("cpu", device):
+            model = MDL.init_params(cfg, torch.Generator().manual_seed(seed),
+                                    device="cpu").to(d)
+            tokens, kw = llm_inputs(cfg, B, S, seed, d)
+            max_len = S + LLM_STEPS + 1 + (cfg.frontend_seq
+                                           if cfg.family == "vlm" else 0)
+            cache = MDL.make_cache(cfg, B, max_len, device=d)
+            toks, logits = STEP.greedy(model, cfg, dict(tokens=tokens, **kw),
+                                       cache, LLM_STEPS)
+            runs.append((toks.cpu(), [lg.cpu() for lg in logits]))
+        (t_cpu, l_cpu), (t_dev, l_dev) = runs
+        err = max(float((a - b).abs().max()) for a, b in zip(l_cpu, l_dev))
+        print(f"  {arch} reduced ({cfg.family}): tokens "
+              f"{t_dev[0].tolist()}, max |logit gap| {err:.3e}", flush=True)
+        if not torch.equal(t_cpu, t_dev):
+            raise AssertionError(f"{arch}: greedy tokens on {device} "
+                                 f"{t_dev.tolist()} != CPU {t_cpu.tolist()}")
+        if not err <= LLM_ATOL:
+            raise AssertionError(f"{arch}: logits on {device} differ from "
+                                 f"the CPU's by {err} > {LLM_ATOL}")
+        worst = max(worst, err)
+    return worst
+
+
+def llm_serve(argv, tables: list) -> dict:
+    """`repro_torch.launch.serve.main(argv)`, held to what it must give:
+    every admitted session resolved (the launcher raises otherwise) to the
+    KV slot its admit returned, finite logits, tokens in [0, vocab) and no
+    shed session op.  Each batch's session ids, with the session table's
+    kernel tables and overlay mirror as its lookup read them, go to
+    `tables`."""
+    from repro_torch.launch import serve as LS
+
+    def on_lookup(sessions, ids):
+        oi = sessions.index._engine.oi
+        tables.append((oi.store.kernel_tables, oi._overlay_arrays(),
+                       sessions.index._pad_batch(len(ids)), list(ids)))
+
+    rep = LS.main(argv, on_lookup=on_lookup)
+    cfg, gen = rep["cfg"], rep["generated"]
+    for b in rep["slots"]:
+        if not np.array_equal(b["resolved"], b["admitted"]):
+            raise AssertionError(f"sessions {b['ids']} resolved to KV slots "
+                                 f"{b['resolved']}, admitted to "
+                                 f"{b['admitted']}")
+    if not rep["logits_finite"]:
+        raise AssertionError("the served logits are not all finite")
+    if not ((gen >= 0) & (gen < cfg.vocab)).all():
+        raise AssertionError(f"served tokens outside [0, {cfg.vocab})")
+    if rep["frontend"]["shed_ops"]:
+        raise AssertionError(f"the front-end shed "
+                             f"{rep['frontend']['shed_ops']} session ops")
+    return rep
+
+
+def llm_bounds(model, cfg, B: int, P: int, pos: int) -> dict:
+    """Least ms of a prefill of [B, P] and of one decode step at `pos`: the
+    larger of the bytes each must move over HBM (each weight read once,
+    but of the token table only the B x S rows looked up; the KV written,
+    and for decode the KV up to `pos` read; the logits written) and its
+    operations at the card's bf16 peak (2 per weight per token, the last
+    token's head, and causal attention)."""
+    elt = model.embed.tok.element_size()
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    tok = model.embed.tok.numel() * elt
+    body = sum(p.numel() for n, p in model.named_parameters()
+               if n.startswith("layers."))
+    head = cfg.vocab * cfg.d_model
+    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * elt
+    att = 2 * 2 * cfg.n_layers * cfg.n_heads * cfg.hd
+
+    def bound(tokens, kv_read, ops):
+        moved = (wbytes - tok + tokens * cfg.d_model * elt
+                 + tokens * kv_row + kv_read + B * cfg.vocab * 4)
+        b_ms, o_ms = moved / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+        return dict(ms=max(b_ms, o_ms), bytes=moved, ops=ops,
+                    by="bytes" if b_ms >= o_ms else "operations")
+
+    n = B * P
+    prefill = bound(n, 0, 2 * n * body + 2 * B * head
+                    + att * B * P * (P + 1) // 2)
+    decode = bound(B, B * pos * kv_row,
+                   2 * B * (body + head) + att * B * (pos + 1))
+    return dict(prefill=prefill, decode=decode, weight_bytes=wbytes)
+
+
+def llm_numbers(rep: dict, seed: int, device, card: str) -> dict:
+    """The served model's weight bytes and memory, prefill of [8, 32] and
+    decode ms per step on CUDA events (each beside its bound), and where a
+    decode step's time goes."""
+    import torch
+    from repro_torch.models import model as MDL
+    from repro_torch.train import step as STEP
+    model, cfg = rep["model"], rep["cfg"]
+    B, P = 8, 32
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, P)).astype(np.int32)).to(device)
+    cache = MDL.make_cache(cfg, B, P + 3 * LLM_TIMED_STEPS, device=device)
+    prefill = STEP.make_prefill_step(cfg)
+    decode = STEP.make_decode_step(cfg)
+    batch = dict(tokens=prompts)
+    for _ in range(2):
+        prefill(model, batch, cache)
+    prefill_ms = cuda_ms(lambda: prefill(model, batch, cache), 5)
+    p_wall_us, p_by_name = device_events(lambda: prefill(model, batch,
+                                                         cache), reps=2)
+    p_busy_us = sum(us for us, _ in p_by_name.values())
+    logits, cache = prefill(model, batch, cache)
+    st = dict(tok=torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32),
+              cache=cache)
+
+    def step():
+        st["tok"], _, st["cache"] = decode(model, st["tok"], st["cache"])
+
+    for _ in range(3):
+        step()
+    pos = st["cache"]["pos"]
+    decode_ms = cuda_ms(step, LLM_TIMED_STEPS)
+    wall_us, by_name = device_events(step, reps=4)
+    busy_us = sum(us for us, _ in by_name.values())
+    launches = sum(c for _, c in by_name.values()) / 4
+    bd = llm_bounds(model, cfg, B, P, pos + LLM_TIMED_STEPS // 2)
+    out = dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
+               bounds=bd,
+               decode_busy_ms=busy_us / 4e3 if by_name else None,
+               decode_idle=1 - busy_us / wall_us if by_name else None,
+               decode_launches=launches if by_name else None,
+               prefill_idle=1 - p_busy_us / p_wall_us if p_by_name else None)
+    print(f"llm numbers on {card} ({cfg.name}, {cfg.n_layers} layers, "
+          f"{cfg.dtype}): weights {bd['weight_bytes']} B; prefill of "
+          f"[{B}, {P}] {prefill_ms:.3f} ms (bound {bd['prefill']['ms']:.3f} "
+          f"ms by {bd['prefill']['by']}: {bd['prefill']['bytes']} B, "
+          f"{bd['prefill']['ops']} ops); decode {decode_ms:.3f} ms a step on "
+          f"CUDA events over {LLM_TIMED_STEPS} steps from position {pos} "
+          f"(bound "
+          f"{bd['decode']['ms']:.3f} ms by {bd['decode']['by']}: "
+          f"{bd['decode']['bytes']} B over {HBM_BYTES_PER_S:.3g} B/s, "
+          f"{bd['decode']['ops']} ops; {decode_ms / bd['decode']['ms']:.2f}x "
+          f"the bound)", flush=True)
+    if p_by_name:
+        entries = sum(c for _, c in p_by_name.values()) / 2
+        print(f"  prefill: device busy {p_busy_us / 2e3:.3f} ms of "
+              f"{p_wall_us / 2e3:.3f} ms wall (idle "
+              f"{out['prefill_idle']:.4f}), {entries:.0f} device entries",
+              flush=True)
+    if by_name:
+        print(f"  decode step: device busy {out['decode_busy_ms']:.3f} ms of "
+              f"{wall_us / 4e3:.3f} ms wall (idle {out['decode_idle']:.4f}), "
+              f"{launches:.0f} device entries a step; top:", flush=True)
+        for name, (us, c) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:6]:
+            print(f"    {us / 4e3:9.3f} ms  x{c / 4:.0f}  {name[:80]}",
+                  flush=True)
+    else:
+        print("  decode step breakdown: not measured (three profiler "
+              "sessions saw no device events)", flush=True)
+    return out
+
+
+def llm_decode_property(cfg, seed: int, device) -> float:
+    """The reference's decode property (tests/test_models.py) on `cfg`:
+    prefill of 20 tokens and one decode step give the last token the full
+    forward's logits within LLM_DECODE_RTOL.  Returns the relative gap."""
+    import torch
+    from repro_torch.models import model as MDL
+    model = MDL.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed), device=device)
+    B, S = 2, 21
+    tokens, _ = llm_inputs(cfg, B, S, seed, device)
+    with torch.no_grad():
+        full, _ = MDL.forward_train(model, cfg, tokens)
+    cache = MDL.make_cache(cfg, B, S + 3, device=device)
+    _, cache = MDL.prefill(model, cfg, tokens[:, :S - 1], cache)
+    lg, _ = MDL.decode_step(model, cfg, tokens[:, S - 1:S], cache)
+    rel = float((full[:, -1] - lg[:, 0]).abs().max()) \
+        / (float(full[:, -1].abs().max()) + 1e-9)
+    print(f"  decode against the full forward, {cfg.name} at d_model "
+          f"{cfg.d_model}, {cfg.n_layers} layers, {cfg.dtype}: relative gap "
+          f"{rel:.3e} (limit {LLM_DECODE_RTOL})", flush=True)
+    if not rel < LLM_DECODE_RTOL:
+        raise AssertionError(f"decode differs from the full forward by "
+                             f"{rel} relative")
+    del model
+    return rel
+
+
+def llm_path(seed: int, device, card: str) -> dict:
+    """Phase 12 (see the module docstring); the f64 kernel's launches are
+    counted over the launcher's run alone."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dili_search import (kernel, kernel_f32_i64,
+                                                 kernel_f64)
+    t12 = time.perf_counter()
+    # card results are held to CPU ones: no TF32 in f32 matmuls
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("llm: the six reduced archs (f32), prefill and "
+          f"{LLM_STEPS} greedy decode steps, card against CPU:", flush=True)
+    llm_err = llm_reduced_vs_cpu(seed, device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
+    tables = []
+    rep = llm_serve(LLM_SERVE_ARGV, tables)
+    launches = kernel_f64.launches
+    if launches == 0:
+        raise AssertionError("the llm serve path launched the f64 kernel no "
+                             "time")
+    # the f64/i64 kernel at this path's shapes: the session table's tables
+    # and overlay as each batch's lookup read them, its ids padded as the
+    # facade pads them, and the ids alone
+    print(f"f64 kernel vs plain on the session table ({len(tables)} decode "
+          f"batches):", flush=True)
+    max_err = 0.0
+    for i, (arrs, ov, lanes, ids) in enumerate(tables):
+        q = torch.tensor(ids + ids[:1] * (lanes - len(ids)),
+                         dtype=torch.float64, device=device)
+        max_err = max(max_err, kernel_vs_plain(
+            arrs, {f"batch{i}_padded": q, f"batch{i}_ids": q[:len(ids)]},
+            "sessions", ov=ov))
+    del tables
+    held = torch.cuda.memory_allocated() - mem0
+    fe, cfg = rep["frontend"], rep["cfg"]
+    print(f"llm serve on {card}: {cfg.name} at full width, {cfg.n_layers} "
+          f"layers, {cfg.dtype}: {len(rep['generated'])} requests x "
+          f"{rep['generated'].shape[1]} tokens, every session resolved, "
+          f"logits finite, tokens in [0, {cfg.vocab}); init "
+          f"{rep['init_s']:.3f} s; served in {rep['serve_s']:.3f} s "
+          f"({rep['tok_per_s']:.1f} tok/s); {held} B held after serving; "
+          f"front-end {fe['accepted_ops']} ops in {fe['n_batches']} batches, "
+          f"shed share {fe['shed_ops'] / max(fe['accepted_ops'], 1):.4f}; "
+          f"f64 kernel launches {launches} (f32: {kernel.launches}, "
+          f"f32/i64: {kernel_f32_i64.launches})", flush=True)
+    out = llm_numbers(rep, seed, device, card)
+    print(f"llm memory: peak allocated {torch.cuda.max_memory_allocated()} B "
+          f"over serving and timing", flush=True)
+    del rep
+    torch.cuda.empty_cache()
+    rel = llm_decode_property(dataclasses.replace(
+        get_config(LLM_ARCH), n_layers=2, dtype="float32"), seed, device)
+    print(f"llm: phase {time.perf_counter() - t12:.1f} s; reduced archs' "
+          f"largest logit gap {llm_err:.3e}, full-width decode's relative "
+          f"gap {rel:.3e}", flush=True)
+    return dict(out, launches=launches, max_err=max_err)
+
+
 def make_overlay(keys: np.ndarray, rng, device, n_up: int = 1000,
                  n_dead: int = 600, dtype=None, cap: int = 64):
     """An overlay mirror of upserts (new keys between neighbours, and
@@ -2444,7 +2793,8 @@ def main() -> int:
 
     # -- 4. the local main path, counted --------------------------------------
     kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
-    ix, tk, tv, info = local_path(args.keys, args.seed, dev)
+    local_tree = {}
+    ix, tk, tv, info = local_path(args.keys, args.seed, dev, local_tree)
     launches, launches_f64 = kernel.launches, kernel_f64.launches
     if launches_f64 == 0:
         raise AssertionError("the local path launched the f64 kernel no "
@@ -2621,7 +2971,8 @@ def main() -> int:
 
     # -- 7. background maintenance on the local engine, counted ---------------
     kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
-    maint = maint_path(args.keys, args.seed, dev)
+    maint = maint_path(args.keys, args.seed, dev, local_tree)
+    del local_tree
     launches_maint = kernel_f64.launches
     if launches_maint == 0:
         raise AssertionError("the maintenance path launched the f64 kernel "
@@ -2686,8 +3037,15 @@ def main() -> int:
           f"(f32: {kernel.launches}, f32/i64: {kernel_f32_i64.launches})",
           flush=True)
     entry64["launches"] += comp["launches"]
+    comp_order = comp["order"]
     entry64["max_abs_err"] = max(entry64["max_abs_err"], comp["max_err"])
-    del local_bulk
+    del local_bulk, comp
+    torch.cuda.empty_cache()
+
+    # -- 12. llm serve: the LLM serving path on the card, counted ------------
+    llm = llm_path(args.seed, dev, card)
+    entry64["launches"] += llm["launches"]
+    entry64["max_abs_err"] = max(entry64["max_abs_err"], llm["max_err"])
     print(f"summary: serve on the local 1M index: the ramp's best "
           f"achieved rate {serve['ramp_best']:.1f} ops/s, the highest "
           f"offered rate a leg held {serve['sustained']:.1f} ops/s; sharded "
@@ -2696,8 +3054,10 @@ def main() -> int:
           f"{sharded['sharded_dev_ms']:.5f} ms against local "
           f"{sharded['local_dev_ms']:.5f} ms; background/sync lookup p99 "
           f"{compare['background']['p99']:.3f}/{compare['sync']['p99']:.3f} "
-          f"ms; competitors fastest first {' < '.join(comp['order'])}; "
-          f"the whole script {time.perf_counter() - T_START:.1f} s",
+          f"ms; competitors fastest first {' < '.join(comp_order)}; "
+          f"{LLM_ARCH} decode {llm['decode_ms']:.3f} ms a step against a "
+          f"{llm['bounds']['decode']['ms']:.3f} ms bound; the whole script "
+          f"{time.perf_counter() - T_START:.1f} s",
           flush=True)
 
     print(card, flush=True)

@@ -1,7 +1,7 @@
-"""The CUDA kernel and the port's facade on a GPU, against the plain
-PyTorch version on the CPU.  Needs an NVIDIA GPU and nvcc; every test
-skips without one.  Imports no JAX, so it runs where only the port is
-installed:
+"""The CUDA kernel, the port's facade and its LLM serve steps on a GPU,
+against the plain PyTorch version on the CPU.  Needs an NVIDIA GPU and
+nvcc; every test skips without one.  Imports no JAX, so it runs where
+only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -10,15 +10,19 @@ import pytest
 import torch
 
 from repro_torch.api import IndexConfig, LearnedIndex, manual_merge_policy
+from repro_torch.configs import get_config as get_llm_config, list_archs
 from repro_torch.core import baselines as TB
 from repro_torch.core.dili import bulk_load
 from repro_torch.core.flat import flatten
 from repro_torch.data.datasets import generate
 from repro_torch.kernels import dili_search as T_kernel
 from repro_torch.kernels import ops as K
+from repro_torch.models import model as MDL
 from repro_torch.online.overlay import TombstoneOverlay, overlay_device_arrays
+from repro_torch.train import step as STEP
 
 pytestmark = pytest.mark.cuda
+LLM_ARCHS = list_archs()
 
 
 @pytest.fixture(scope="module")
@@ -694,3 +698,38 @@ def test_competitor_on_gpu_matches_cpu(gpu, competitor_case, name, dtype):
         assert bool(want[1][:len(keys)].all())
         assert torch.equal(want[0][:len(keys)].long(),
                            torch.arange(len(keys)))
+
+
+@pytest.mark.parametrize("arch", LLM_ARCHS)
+def test_llm_reduced_on_gpu_matches_cpu(gpu, arch, monkeypatch):
+    """A reduced LLM in f32 (weights from the port's seeded init on the CPU,
+    the same moved to the card): prefill of [2, 12] and 4 greedy decode
+    steps on CUDA give the CPU's tokens, logits within 1e-4 absolute, with
+    TF32 off."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_llm_config(arch).reduced()
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)
+    kw = {}
+    if cfg.family == "vlm":
+        kw["extra_embeds"] = rng.standard_normal(
+            (2, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        kw["enc_frames"] = rng.standard_normal(
+            (2, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+    max_len = 12 + 5 + (cfg.frontend_seq if cfg.family == "vlm" else 0)
+    runs = []
+    for dev in (torch.device("cpu"), gpu):
+        model = MDL.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu").to(dev)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in dict(tokens=tokens, **kw).items()}
+        toks, logits = STEP.greedy(model, cfg, batch,
+                                   MDL.make_cache(cfg, 2, max_len,
+                                                  device=dev), 4)
+        assert model.layers[0].attn.wq.device.type == dev.type
+        runs.append((toks.cpu(), [lg.cpu() for lg in logits]))
+    (t_cpu, l_cpu), (t_gpu, l_gpu) = runs
+    assert torch.equal(t_gpu, t_cpu)
+    for a, b in zip(l_gpu, l_cpu):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)

@@ -1,11 +1,13 @@
 """The port's examples on the CPU against the JAX package.
 
-Each ported example's `main` runs at 20,000 keys with `--device cpu`; the
+Each ported DILI example's `main` runs at 20,000 keys with `--device cpu`; the
 facts it prints (found counts and correctness, average range hits, the
 epoch, mean probes) must equal what the reference's facade and baselines
 give on the same keys, called in-process here (the reference's sharded
 engine on its one JAX device, the port's on 8 shards: results are the
-same on every engine and shard count).
+same on every engine and shard count).  The LLM serving example's session
+table must end with the host DILI's stats that the reference's session
+table gives for the same admits, lookups and evicts.
 """
 import importlib.util
 from pathlib import Path
@@ -17,6 +19,7 @@ from repro.api import IndexConfig, LearnedIndex
 from repro.core import search as JS
 from repro.core.baselines import BinS, RMI
 from repro.data.datasets import generate
+from repro.serve.sessions import SessionTable
 
 ROOT = Path(__file__).resolve().parents[1]
 N_KEYS = 20_000
@@ -120,4 +123,32 @@ def test_distributed_facts_equal_reference(capsys):
     out = _run("distributed_index_torch", capsys)
     assert "shards: 8\n" in out
     for line in _distributed_facts():
+        assert line in out, (line, out)
+
+
+def _serve_llm_facts(requests: int, batch: int, tokens: int) -> list:
+    """The example's session traffic through the reference's table."""
+    sessions = SessionTable(n_slots=batch + 4)
+    rid = 1000.0
+    for _ in range(0, requests, batch):
+        ids = []
+        for _ in range(batch):
+            rid += 1.0
+            sessions.admit(rid)
+            ids.append(rid)
+        _, found = sessions.lookup_batch(ids)
+        assert found.all()
+        for i in ids:
+            sessions.evict(i)
+    return [f"[serve] {requests} requests, {requests * tokens} generated "
+            f"tokens in ",
+            f"[serve] session-table stats: {sessions.dili.stats()}\n"]
+
+
+def test_serve_llm_facts_equal_reference(capsys):
+    capsys.readouterr()
+    _example("serve_llm_torch").main(["--device", "cpu", "--requests", "16",
+                                      "--batch", "8", "--tokens", "4"])
+    out = capsys.readouterr().out
+    for line in _serve_llm_facts(16, 8, 4):
         assert line in out, (line, out)
