@@ -105,9 +105,10 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      ratio;
  11. the paper's competitors (`repro_torch/core/baselines.py`: BinS,
      B+Tree, RMI, PGM, RS, LIPP, ALEX) beside DILI on the local path's
-     keys, DILI's row from that bulk load's flat (the f64/i64 walk, no
-     overlay): each built on the host (its seconds and device bytes a
-     key, Fig. 6a), one 2^20-lane batch of hits and midpoint misses
+     keys (LIPP, the slowest host build, on the local-f32 path's 249,228
+     keys with a batch of its own), DILI's row from that bulk load's
+     flat (the f64/i64 walk, no overlay): each built on the host (its
+     seconds and device bytes a key, Fig. 6a), one 2^20-lane batch of hits and midpoint misses
      through each held to a numpy truth, then to the same torch code on
      the CPU on a 65,536-lane sample and the pad-and-above lanes (vals,
      found, probes; PGM, which misses some keys as the reference does,
@@ -132,8 +133,27 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      share, weight bytes and peak memory, prefill of [8, 32] and decode
      ms a step on CUDA events beside their bounds, and the device's busy
      share in each; then decode against the full forward at
-     granite-8b's width with 2 layers in f32 (2e-2 relative).  Then the
-     whole script's seconds.
+     granite-8b's width with 2 layers in f32 (2e-2 relative);
+ 13. llm train (the LLM training path, `repro_torch/train/`): the six
+     reduced archs in f32 with remat off, weights from the port's seeded
+     init, one step's loss, grad norm and every gradient leaf and 3 AdamW
+     steps' losses on the card and on the CPU (relative gaps within 1e-4,
+     TF32 off); then granite-8b at full width with 16 of its 36 layers in
+     bf16, remat `dots`, the launcher's AdamW and cosine schedule, 6 steps
+     of batch 8 x 128 drawn by `StorePipeline` from a `RecordStore` on the
+     card (2,000 documents of 129 tokens, the training example's
+     `build_store`), whose lookups must launch the f64/i64 kernel: finite
+     losses and grad norms, weights changed; the kernel against its plain
+     version on each lookup's tables, overlay and keys; prints the init
+     seconds, peak memory, step ms on CUDA events (median of steps 2-6,
+     split forward + backward and optimizer) beside the bytes and
+     operations bounds, and one more step under torch.profiler (busy,
+     idle share, kernels); then the accumulation property at full width
+     with 2 layers in f32 (loss 1e-5, grad norm 1e-4 relative), and
+     `examples/train_lm_torch.py --preset cpu` on the card failed at step
+     6 (exit 42) and resumed from its step-4 checkpoint, its losses and
+     weights against an uninterrupted run within 1e-5.  Then the whole
+     script's seconds.
 The last two lines are the kernels JSON object and the `{"ok": true, ...}`
 result.  Needs `torch` with CUDA, `nvcc`, and `nvidia-smi`.
 """
@@ -795,6 +815,13 @@ def check_lookup_f32_local(ix, tk, tv, q, label):
     return dt, float(f[th].mean()) if th.any() else 1.0
 
 
+def f32_exact_keys(n_keys: int, seed: int) -> np.ndarray:
+    """`n_keys` logn keys made exact in f32 (cast and unique), as f64."""
+    from repro_torch.data.datasets import generate
+    return np.unique(generate("logn", n_keys, seed).astype(
+        np.float32)).astype(np.float64)
+
+
 def local_f32_path(n_keys: int, seed: int, device) -> tuple:
     """The local engine at dtype=float32: build on logn keys made exact in
     f32 (cast and unique), read, write in batches of 1000 under the
@@ -804,10 +831,8 @@ def local_f32_path(n_keys: int, seed: int, device) -> tuple:
     vals, info)."""
     import torch
     from repro_torch.api import IndexConfig, LearnedIndex
-    from repro_torch.data.datasets import generate
     rng = np.random.default_rng(seed + 3)
-    tk = np.unique(generate("logn", n_keys, seed).astype(np.float32)).astype(
-        np.float64)
+    tk = f32_exact_keys(n_keys, seed)
     tv = np.arange(len(tk), dtype=np.int64) + 2 ** 36
     t0 = time.perf_counter()
     ix = LearnedIndex.build(tk, tv, config=IndexConfig(
@@ -1875,15 +1900,37 @@ def _kernel_profile(fn) -> tuple:
             sum(us for us, _ in kernels.values()), top)
 
 
+def _competitor_batch(keys: np.ndarray, rng, device) -> dict:
+    """One key set's 2^20-lane batch (half hits, half midpoint misses,
+    repeated where the key set has fewer), its numpy truth, and the
+    sample the CPU comparison reads."""
+    import torch
+    vals = np.arange(len(keys), dtype=np.int64)
+    sets = lane_sets(keys, rng, "cpu", np.float64)
+    half = BATCH // 2
+    q_cpu = torch.cat([x.repeat(-(-half // len(x)))[:half]
+                       for x in (sets["hits"], sets["misses"])])
+    pick = torch.from_numpy(rng.choice(BATCH, COMPETITOR_SAMPLE,
+                                       replace=False))
+    return dict(keys=keys, vals=vals, sets=sets, q_cpu=q_cpu,
+                q=q_cpu.to(device),
+                want=truth_lookup(keys, vals, q_cpu.numpy()),
+                qs_cpu=torch.cat([q_cpu[pick], sets["pad_and_above"]]))
+
+
 def competitors_path(keys: np.ndarray, flat, dili_build_s: float,
-                     seed: int, device, card: str) -> dict:
+                     seed: int, device, card: str,
+                     lipp_keys: np.ndarray) -> dict:
     """The paper's competitors (section 7.1; Tables 4 and 5, Fig. 6a)
     beside DILI on the local path's keys, whose bulk load's `flat` (built
-    in `dili_build_s`, flatten included) gives the DILI row.  Each is
-    built on the host (payload = position), and one 2^20-lane batch (half
-    hits, half midpoint misses) is looked up through each, every lane
-    held to a numpy truth (PGM's found lanes only, `INEXACT`): that is
-    the path the launch count reads.  Then each is held to the same torch
+    in `dili_build_s`, flatten included) gives the DILI row; LIPP, whose
+    host build is the slowest, on `lipp_keys` (the local-f32 path's
+    249,228 keys since PR 20, to keep the script inside its time limit)
+    with a batch of its own.  Each is built on the host (payload =
+    position), and one 2^20-lane batch (half hits, half midpoint misses)
+    is looked up through each, every lane held to a numpy truth (PGM's
+    found lanes only, `INEXACT`): that is the path the launch count
+    reads.  Then each is held to the same torch
     code on the CPU (vals, found, probes) on a sample of the batch and
     the pad-and-above lanes (PGM on the whole batch), LIPP's kernel and
     DILI's to their plain versions, and each row is timed: ms per 2^20
@@ -1897,27 +1944,25 @@ def competitors_path(keys: np.ndarray, flat, dili_build_s: float,
     from repro_torch.kernels import ops as K
     from repro_torch.kernels.dili_search import dili_search_f64, kernel_f64
     rng = np.random.default_rng(seed + 11)
-    vals = np.arange(len(keys), dtype=np.int64)
-    sets = lane_sets(keys, rng, "cpu", np.float64)
-    q_cpu = torch.cat([sets["hits"][:BATCH // 2],
-                       sets["misses"][:BATCH // 2]])
-    q = q_cpu.to(device)
-    want_v, want_f = truth_lookup(keys, vals, q_cpu.numpy())
+    base = _competitor_batch(keys, rng, device)
+    lipp_b = _competitor_batch(lipp_keys, rng, device)
 
     rows = {}
     for B in ALL_BASELINES:
+        b = lipp_b if B.name == "LIPP" else base
+        n = len(b["keys"])
         t0 = time.perf_counter()
-        st = B.build(keys, vals)
+        st = B.build(b["keys"], b["vals"])
         build_s = time.perf_counter() - t0
         dst = B.device(st, device=device)
-        rows[B.name] = dict(B=B, st=st, dev=dst, build_s=build_s,
+        rows[B.name] = dict(B=B, st=st, dev=dst, build_s=build_s, b=b,
                             bytes=_nbytes(dst), lookup=B.lookup)
-        kern = (f" ({K.table_bytes(dst['kernel']) / len(keys):.3f} in the "
+        kern = (f" ({K.table_bytes(dst['kernel']) / n:.3f} in the "
                 f"kernel tables; the column tables serve the probe count)"
                 if "kernel" in dst else "")
-        print(f"competitors: {B.name} built on the host in {build_s:.3f} s, "
-              f"{_nbytes(dst) / len(keys):.3f} device B/key{kern}",
-              flush=True)
+        print(f"competitors: {B.name} built on the host on {n} keys in "
+              f"{build_s:.3f} s, {_nbytes(dst) / n:.3f} device "
+              f"B/key{kern}", flush=True)
 
     def dili_lookup(st, q):
         k = st["kernel"]
@@ -1926,36 +1971,34 @@ def competitors_path(keys: np.ndarray, flat, dili_build_s: float,
 
     dili = dict(kernel=K.kernel_arrays(flat, device, torch.float64,
                                        torch.int64))
-    rows["DILI"] = dict(dev=dili, build_s=dili_build_s,
+    rows["DILI"] = dict(dev=dili, build_s=dili_build_s, b=base,
                         bytes=K.table_bytes(dili["kernel"]),
                         lookup=dili_lookup)
 
     # the path: one 2^20-lane lookup through each, held to the truth
     for name, r in rows.items():
-        out = r["lookup"](r["dev"], q)
-        r["missed"] = _held_to_truth(name, out[0], out[1], want_v, want_f,
+        out = r["lookup"](r["dev"], r["b"]["q"])
+        r["missed"] = _held_to_truth(name, out[0], out[1], *r["b"]["want"],
                                      exact=name not in INEXACT)
         if name != "DILI":
             r["probes"] = float(out[2].double().mean())
     launches = kernel_f64.launches
     cols = S.device_arrays(flat, torch.float64, device=device)
-    _, _, nodes, probes = S.search_batch(cols, q, with_stats=True)
+    _, _, nodes, probes = S.search_batch(cols, base["q"], with_stats=True)
     rows["DILI"]["probes"] = float((nodes + probes).double().mean())
     del cols, nodes, probes
     print(f"competitors: {len(rows)} rows held to the truth on {BATCH} "
-          f"lanes ({int(want_f.sum())} hits); f64 kernel launches "
+          f"lanes ({int(base['want'][1].sum())} hits; LIPP's "
+          f"{int(lipp_b['want'][1].sum())}); f64 kernel launches "
           f"{launches}", flush=True)
 
     # the same torch code on the CPU, and the kernels' plain versions
-    pick = torch.from_numpy(rng.choice(BATCH, COMPETITOR_SAMPLE,
-                                       replace=False))
-    qs_cpu = torch.cat([q_cpu[pick], sets["pad_and_above"]])
-    qs = qs_cpu.to(device)
     for name, r in rows.items():
         if name == "DILI":
             continue
-        qc = (torch.cat([q_cpu, sets["pad_and_above"]]) if name in INEXACT
-              else qs_cpu)
+        b = r["b"]
+        qc = (torch.cat([b["q_cpu"], b["sets"]["pad_and_above"]])
+              if name in INEXACT else b["qs_cpu"])
         want = r["B"].lookup(r["B"].device(r["st"], device="cpu"), qc)
         got = r["lookup"](r["dev"], qc.to(device))
         for g, w, what in zip(got, want, ("vals", "found", "probes")):
@@ -1966,24 +2009,27 @@ def competitors_path(keys: np.ndarray, flat, dili_build_s: float,
               f"CPU port", flush=True)
     max_err = max(
         kernel_vs_plain(rows["LIPP"]["dev"]["kernel"],
-                        {"sample": qs, "timed_2^20": q}, "LIPP"),
-        kernel_vs_plain(dili["kernel"], {"sample": qs}, "DILI"))
+                        {"sample": lipp_b["qs_cpu"].to(device),
+                         "timed_2^20": lipp_b["q"]}, "LIPP"),
+        kernel_vs_plain(dili["kernel"], {"sample": base["qs_cpu"].to(
+            device)}, "DILI"))
 
     # the numbers
-    fns = {name: (lambda r=r: r["lookup"](r["dev"], q))
+    fns = {name: (lambda r=r: r["lookup"](r["dev"], r["b"]["q"]))
            for name, r in rows.items()}
     lipp = rows["LIPP"]["dev"]
-    graph = graph_rounds({**fns,
-                          "LIPP walk": lambda: dili_lookup(lipp, q)})
+    graph = graph_rounds({**fns, "LIPP walk": lambda: dili_lookup(
+        lipp, lipp_b["q"])})
     lipp_walk_ms = float(np.median(graph["LIPP walk"]))
     print(f"competitors on {card}: LIPP's walk alone, one f64/i64 launch, "
-          f"{lipp_walk_ms:.5f} ms per 2^20 lanes (max_depth "
-          f"{lipp['kernel']['max_depth']}, DILI's {flat.max_depth}); the "
+          f"{lipp_walk_ms:.5f} ms per 2^20 lanes on its {len(lipp_keys)} "
+          f"keys (max_depth {lipp['kernel']['max_depth']}, DILI's "
+          f"{flat.max_depth} on {len(keys)}); the "
           f"rest of its row is its probe count's stats walk, every lane "
           f"on every one of max_depth rounds", flush=True)
-    q_np = q_cpu.numpy()
     for name, r in rows.items():
         r["ms"] = float(np.median(graph[name]))
+        q_np = r["b"]["q_cpu"].numpy()
         host = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -1995,9 +2041,9 @@ def competitors_path(keys: np.ndarray, flat, dili_build_s: float,
         print(f"competitors on {card}: {name:6s} {r['ms']:.5f} ms per 2^20 "
               f"lanes (graph), host {r['host_ms']:.3f} ms, "
               f"{r['launches']:.0f} launches a lookup, mean probes "
-              f"{r['probes']:.4f}, {r['bytes'] / len(keys):.3f} device "
-              f"B/key, build {r['build_s']:.3f} s, hits missed "
-              f"{r['missed']}", flush=True)
+              f"{r['probes']:.4f}, {r['bytes'] / len(r['b']['keys']):.3f} "
+              f"device B/key over {len(r['b']['keys'])} keys, build "
+              f"{r['build_s']:.3f} s, hits missed {r['missed']}", flush=True)
         print(f"  {name}: kernels busy {busy_us:.1f} us (profiler); "
               f"longest: " + "; ".join(f"{us:.1f} us in {n} x {k[:60]}"
                                        for us, n, k in top), flush=True)
@@ -2298,6 +2344,389 @@ def llm_path(seed: int, device, card: str) -> dict:
           f"largest logit gap {llm_err:.3e}, full-width decode's relative "
           f"gap {rel:.3e}", flush=True)
     return dict(out, launches=launches, max_err=max_err)
+
+
+TRAIN_ARCH = "granite-8b"
+TRAIN_LAYERS = 16                # of granite-8b's 36: AdamW's state must fit
+TRAIN_STEPS = 6                  # full-width steps; one more is profiled
+TRAIN_BATCH, TRAIN_SEQ = 8, 128  # the launcher's and the example's defaults
+TRAIN_RTOL = 1e-4                # reduced archs card vs CPU (of each max)
+TRAIN_ACCUM_LOSS_RTOL = 1e-5     # tests/test_train.py's accumulation
+TRAIN_ACCUM_NORM_RTOL = 1e-4     # property, loss and grad norm
+TRAIN_RESUME_RTOL = 1e-5         # resumed against uninterrupted (of max)
+
+
+def _train_batch(cfg, B: int, S: int, seed: int, device) -> dict:
+    """Tokens and labels [B, S] (with the frontend stubs), from a numpy
+    seed, with a leading accumulation axis when the config accumulates."""
+    import torch
+    rng = np.random.default_rng(seed)
+    lead = (cfg.accum_steps,) if cfg.accum_steps > 1 else ()
+    b = dict(tokens=rng.integers(0, cfg.vocab, lead + (B, S)),
+             labels=rng.integers(0, cfg.vocab, lead + (B, S)))
+    if cfg.family == "vlm":
+        b["extra_embeds"] = rng.standard_normal(
+            lead + (B, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        b["enc_frames"] = rng.standard_normal(
+            lead + (B, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def _rel_gap(a, b) -> float:
+    """max |a - b| over max |b| (0 when both are 0)."""
+    scale = float(b.abs().max())
+    gap = float((a.float() - b.float()).abs().max())
+    return gap / scale if scale else gap
+
+
+def train_reduced_vs_cpu(seed: int, device) -> dict:
+    """Phase 13a: each assigned architecture's reduced config in f32 with
+    remat off, weights from the port's seeded init on the CPU moved to
+    `device`: one step's loss, grad norm and every gradient leaf there and
+    on the CPU, then 3 AdamW train steps' losses.  Every gap is relative
+    (to the CPU's value, or to the leaf's largest |g|) and must be within
+    TRAIN_RTOL.  Returns the largest gaps."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.models import model as MDL
+    from repro_torch.train import optim as O
+    from repro_torch.train import step as STEP
+    worst = dict(loss=0.0, grad_norm=0.0, grad=0.0, steps=0.0)
+    for arch in list_archs():
+        cfg = dataclasses.replace(get_config(arch).reduced(), remat="none")
+        runs = []
+        for d in ("cpu", device):
+            model = MDL.init_params(cfg, torch.Generator().manual_seed(seed),
+                                    device="cpu").to(d).requires_grad_(True)
+            tree = MDL.param_tree(model)
+            b = _train_batch(cfg, 2, 12, seed, d)
+            mb = {k: v[0] for k, v in b.items()} if cfg.accum_steps > 1 \
+                else b
+            loss = MDL.loss_fn(model, cfg, mb["tokens"], mb["labels"],
+                               extra_embeds=mb.get("extra_embeds"),
+                               enc_frames=mb.get("enc_frames"))
+            grads = torch.autograd.grad(loss, O.tree_tensors(tree))
+            norm = O.global_norm({"g": list(grads)})
+            opt = O.adamw(lr=1e-3)
+            state = dict(params=model, opt=opt.init(tree),
+                         step=torch.zeros((), dtype=torch.int32, device=d))
+            step = STEP.make_train_step(cfg, opt)
+            losses = []
+            for i in range(3):
+                state, m = step(state, _train_batch(cfg, 2, 12, seed + 1 + i,
+                                                    d))
+                losses.append(float(m["loss"]))
+            runs.append((float(loss.detach()), float(norm),
+                          [g.cpu() for g in grads], losses))
+        (l0, n0, g0, s0), (l1, n1, g1, s1) = runs
+        gaps = dict(loss=abs(l1 - l0) / abs(l0), grad_norm=abs(n1 - n0) / n0,
+                    grad=max(_rel_gap(a, b) for a, b in zip(g1, g0)),
+                    steps=max(abs(a - b) / abs(b) for a, b in zip(s1, s0)))
+        print(f"  {arch} reduced ({cfg.family}): loss {l1:.6f}, grad norm "
+              f"{n1:.6f}; relative gaps: loss {gaps['loss']:.3e}, grad "
+              f"norm {gaps['grad_norm']:.3e}, largest gradient leaf "
+              f"{gaps['grad']:.3e}; 3 AdamW steps' losses "
+              f"{[round(x, 6) for x in s1]}, gap {gaps['steps']:.3e}",
+              flush=True)
+        for k, v in gaps.items():
+            if not v <= TRAIN_RTOL:
+                raise AssertionError(f"{arch}: {k} on {device} differs from "
+                                     f"the CPU's by {v} > {TRAIN_RTOL}")
+            worst[k] = max(worst[k], v)
+    return worst
+
+
+def _example_module(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def train_bounds(model, cfg, tokens: int) -> dict:
+    """Least ms of one AdamW train step on `tokens` tokens: the larger of
+    its bytes over HBM (each weight read twice, forward and backward, but
+    of the token table only the rows looked up; the gradients written,
+    then read and written by the clip; AdamW's read of parameter, clipped
+    gradient and both f32 moments and write of parameter and moments) and
+    its operations at the card's bf16 peak (6 per matmul weight per
+    token, and causal attention's forward and backward)."""
+    tok = model.embed.tok
+    params = list(model.named_parameters())
+    n = sum(p.numel() for _, p in params)
+    e = tok.element_size()
+    wbytes = n * e
+    mat = sum(p.numel() for name, p in params
+              if p.dim() >= 2 and name != "embed.tok")
+    if cfg.tie_embeddings:
+        mat += tok.numel()
+    reads = 2 * (wbytes - tok.numel() * e + tokens * cfg.d_model * e)
+    grads = 3 * wbytes
+    adamw = n * (2 * e + e + 16)
+    moved = reads + grads + adamw
+    seq = TRAIN_SEQ
+    att = 3 * 2 * 2 * cfg.n_layers * cfg.n_heads * cfg.hd * \
+        (tokens // seq) * seq * (seq + 1) // 2
+    ops = 6 * mat * tokens + att
+    b_ms, o_ms = moved / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+    return dict(ms=max(b_ms, o_ms), bytes=moved, ops=ops, bytes_ms=b_ms,
+                ops_ms=o_ms, by="bytes" if b_ms >= o_ms else "operations",
+                params=n, matmul_params=mat)
+
+
+def train_full(seed: int, device, card: str) -> dict:
+    """Phase 13b: granite-8b at full width, TRAIN_LAYERS layers, bf16,
+    remat `dots`, the launcher's AdamW and cosine schedule, batches from
+    `StorePipeline` over a `RecordStore` on the card (the training
+    example's `build_store` at vocab 49152).  Each store lookup's tables,
+    overlay and keys are kept for the kernel comparison; the f64/i64
+    kernel's launches are counted by the caller over this function."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import StorePipeline
+    from repro_torch.train import optim as O
+    from repro_torch.train import step as STEP
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    store, keys = _example_module("train_lm_torch").build_store(
+        cfg, device=device)
+    store_s = time.perf_counter() - t0
+    lookups = []
+    plain_lookup = store.lookup
+
+    def recorded(picks):
+        oi = store.index._engine.oi
+        lookups.append((oi.store.kernel_tables, oi._overlay_arrays(),
+                        store.index._pad_batch(len(picks)),
+                        np.asarray(picks, np.float64)))
+        return plain_lookup(picks)
+
+    store.lookup = recorded
+    pipe = StorePipeline(store, keys, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH)
+    opt = O.adamw(lr=3e-3, schedule=O.cosine_schedule(3e-3, 20,
+                                                      TRAIN_STEPS))
+    marks = []
+
+    def marked_update(g, s, p):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+        return opt.update(g, s, p)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = STEP.init_state(cfg, opt, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = state["params"]
+    before = model.layers[0].attn.wq.detach().clone()
+    step_fn = STEP.make_train_step(cfg, O.Optimizer(opt.init, marked_update))
+    rows = []
+    for step in range(TRAIN_STEPS):
+        b = pipe.batch_at(step)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step_fn(state, batch)
+        e1.record()
+        rows.append((e0, marks[-1], e1, m))
+    torch.cuda.synchronize()
+    losses = [float(m["loss"]) for *_, m in rows]
+    norms = [float(m["grad_norm"]) for *_, m in rows]
+    step_ms = [a.elapsed_time(c) for a, _, c, _ in rows]
+    fb_ms = [a.elapsed_time(b) for a, b, _, _ in rows]
+    opt_ms = [b.elapsed_time(c) for _, b, c, _ in rows]
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} "
+                             f"{norms}")
+    if torch.equal(model.layers[0].attn.wq, before):
+        raise AssertionError("the weights did not change")
+    del before
+    nxt = {}
+
+    def profiled():
+        b = pipe.batch_at(TRAIN_STEPS)
+        nxt["state"], nxt["m"] = step_fn(
+            state, {k: torch.from_numpy(v).to(device) for k, v in b.items()})
+
+    wall_us, by_name = device_events(profiled, reps=1)
+    peak = torch.cuda.max_memory_allocated()
+    bd = train_bounds(model, cfg, TRAIN_BATCH * TRAIN_SEQ)
+    # steps 2-6: the first one also loads the kernels and warms cuBLAS
+    out = dict(init_s=init_s, store_s=store_s, peak=peak, losses=losses,
+               norms=norms, step_ms=float(np.median(step_ms[1:])),
+               fb_ms=float(np.median(fb_ms[1:])),
+               opt_ms=float(np.median(opt_ms[1:])), bounds=bd,
+               lookups=lookups, busy_ms=None, idle=None, kernels=None)
+    if by_name:
+        busy = sum(us for us, _ in by_name.values())
+        out.update(busy_ms=busy / 1e3, idle=1 - busy / wall_us,
+                   kernels=sum(c for _, c in by_name.values()))
+    print(f"train on {card}: {cfg.name} at full width, {cfg.n_layers} of "
+          f"36 layers, {cfg.dtype}, remat {cfg.remat}, {bd['params']} "
+          f"parameters ({bd['matmul_params']} in matmuls); batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} from StorePipeline over a "
+          f"{len(keys)}-document RecordStore (built in {store_s:.3f} s); "
+          f"init {init_s:.3f} s; peak allocated {peak} B", flush=True)
+    print(f"  losses {[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(x, 4) for x in norms]}; weights changed", flush=True)
+    print(f"  step ms on CUDA events (median of steps 2-{TRAIN_STEPS}): "
+          f"{out['step_ms']:.3f} (forward + backward {out['fb_ms']:.3f}, "
+          f"optimizer {out['opt_ms']:.3f}); all steps "
+          f"{[round(x, 3) for x in step_ms]}", flush=True)
+    print(f"  bound {bd['ms']:.3f} ms by {bd['by']}: {bd['bytes']} B over "
+          f"{HBM_BYTES_PER_S:.3g} B/s = {bd['bytes_ms']:.3f} ms, "
+          f"{bd['ops']} ops at {BF16_FLOPS:.3g}/s = {bd['ops_ms']:.3f} ms; "
+          f"the step takes {out['step_ms'] / bd['ms']:.2f}x the bound",
+          flush=True)
+    if by_name:
+        print(f"  one step under torch.profiler: device busy "
+              f"{out['busy_ms']:.3f} ms of {wall_us / 1e3:.3f} ms wall (idle "
+              f"{out['idle']:.4f}), {out['kernels']} device entries; top:",
+              flush=True)
+        for name, (us, c) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:6]:
+            print(f"    {us / 1e3:9.3f} ms  x{c}  {name[:80]}", flush=True)
+    else:
+        print("  step breakdown: not measured (three profiler sessions saw "
+              "no device events)", flush=True)
+    store.index.close()
+    del state, model, nxt
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_accum_property(seed: int, device) -> tuple:
+    """Phase 13c: the reference's accumulation property
+    (tests/test_train.py) at granite-8b's width with 2 layers in f32:
+    accum_steps=2 against one batch of the same 4 x 64 tokens, lr 0."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.train import optim as O
+    from repro_torch.train import step as STEP
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2,
+                              dtype="float32", accum_steps=2)
+    opt = O.adamw(lr=0.0)
+    state = STEP.init_state(
+        cfg, opt, torch.Generator(device=device).manual_seed(seed),
+        device=device)
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))).to(device)
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))).to(device)
+    _, m_a = STEP.make_train_step(cfg, opt)(
+        state, dict(tokens=tokens.reshape(2, 2, 64),
+                    labels=labels.reshape(2, 2, 64)))
+    _, m_f = STEP.make_train_step(dataclasses.replace(cfg, accum_steps=1),
+                                  opt)(state, dict(tokens=tokens,
+                                                   labels=labels))
+    l_gap = abs(float(m_a["loss"]) - float(m_f["loss"])) / \
+        abs(float(m_f["loss"]))
+    n_gap = abs(float(m_a["grad_norm"]) - float(m_f["grad_norm"])) / \
+        float(m_f["grad_norm"])
+    print(f"  accumulation at d_model {cfg.d_model}, {cfg.n_layers} layers, "
+          f"{cfg.dtype}: 2 micro-batches of 2 x 64 against the batch of 4: "
+          f"loss {float(m_a['loss']):.6f}, relative gaps loss {l_gap:.3e} "
+          f"(limit {TRAIN_ACCUM_LOSS_RTOL}), grad norm {n_gap:.3e} (limit "
+          f"{TRAIN_ACCUM_NORM_RTOL})", flush=True)
+    if not (l_gap <= TRAIN_ACCUM_LOSS_RTOL and
+            n_gap <= TRAIN_ACCUM_NORM_RTOL):
+        raise AssertionError(f"accumulated step differs from the full "
+                             f"batch: loss {l_gap}, grad norm {n_gap}")
+    del state
+    torch.cuda.empty_cache()
+    return l_gap, n_gap
+
+
+def train_resume(device) -> dict:
+    """Phase 13d: `examples/train_lm_torch.py --preset cpu` on `device`
+    for 8 steps with a checkpoint every 4: uninterrupted, then failed at
+    step 6 (exit 42) and rerun, which must resume from step 4 and end on
+    the uninterrupted run's losses and weights within TRAIN_RESUME_RTOL
+    (of the loss, of each weight leaf's largest magnitude)."""
+    import tempfile
+    import torch
+    mod = _example_module("train_lm_torch")
+    argv = ["--preset", "cpu", "--device", str(device), "--steps", "8",
+            "--ckpt-every", "4"]
+    with tempfile.TemporaryDirectory() as tmp:
+        full = mod.main(argv + ["--ckpt-dir", os.path.join(tmp, "full")])
+        cut = argv + ["--ckpt-dir", os.path.join(tmp, "cut")]
+        try:
+            mod.main(cut + ["--fail-at-step", "6"])
+        except SystemExit as e:
+            if e.code != 42:
+                raise AssertionError(f"the failed run exited {e.code}, "
+                                     f"not 42") from None
+        else:
+            raise AssertionError("the run meant to fail at step 6 did not")
+        again = mod.main(cut)
+    if again["start"] != 4:
+        raise AssertionError(f"the rerun resumed from {again['start']}, "
+                             f"not 4")
+    loss_gap = max(abs(a - b) / abs(b)
+                   for a, b in zip(again["losses"], full["losses"][4:]))
+    w_gap = max(_rel_gap(a.detach(), b.detach()) for a, b in zip(
+        again["state"]["params"].parameters(),
+        full["state"]["params"].parameters()))
+    print(f"  resume: examples/train_lm_torch.py --preset cpu on {device}, "
+          f"8 steps, checkpoints at 4 and 8: failed at 6 (exit 42), rerun "
+          f"resumed from step 4; final loss {again['losses'][-1]:.6f} "
+          f"against {full['losses'][-1]:.6f} uninterrupted; largest "
+          f"relative gaps: losses {loss_gap:.3e}, weights {w_gap:.3e} "
+          f"(limit {TRAIN_RESUME_RTOL})", flush=True)
+    if not (loss_gap <= TRAIN_RESUME_RTOL and w_gap <= TRAIN_RESUME_RTOL):
+        raise AssertionError(f"the resumed run differs: losses {loss_gap}, "
+                             f"weights {w_gap}")
+    return dict(loss_gap=loss_gap, w_gap=w_gap)
+
+
+def train_path(seed: int, device, card: str) -> dict:
+    """Phase 13 (see the module docstring); the f64 kernel's launches are
+    counted over the full-width training run alone (13b)."""
+    import torch
+    from repro_torch.kernels.dili_search import (kernel, kernel_f32_i64,
+                                                 kernel_f64)
+    t13 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("train: the six reduced archs (f32, remat none), one step's "
+          "gradients and 3 AdamW steps, card against CPU:", flush=True)
+    reduced = train_reduced_vs_cpu(seed, device)
+    kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
+    full = train_full(seed, device, card)
+    launches = kernel_f64.launches
+    if launches == 0:
+        raise AssertionError("the train path launched the f64 kernel no "
+                             "time")
+    print(f"train: f64 kernel launches {launches} over "
+          f"{len(full['lookups'])} store lookups (f32: {kernel.launches}, "
+          f"f32/i64: {kernel_f32_i64.launches})", flush=True)
+    print(f"f64 kernel vs plain on the record store "
+          f"({len(full['lookups'])} lookups):", flush=True)
+    max_err = 0.0
+    for i, (arrs, ov, lanes, picks) in enumerate(full.pop("lookups")):
+        q = torch.from_numpy(np.concatenate(
+            [picks, np.full(max(lanes - len(picks), 0), picks[0])])).to(
+                device)
+        max_err = max(max_err, kernel_vs_plain(
+            arrs, {f"lookup{i}_padded": q, f"lookup{i}": q[:len(picks)]},
+            "store", ov=ov))
+    accum = train_accum_property(seed, device)
+    resume = train_resume(device)
+    print(f"train: phase {time.perf_counter() - t13:.1f} s; reduced archs' "
+          f"largest relative gaps: loss {reduced['loss']:.3e}, grad norm "
+          f"{reduced['grad_norm']:.3e}, gradient {reduced['grad']:.3e}, "
+          f"3-step losses {reduced['steps']:.3e}; accumulation gaps "
+          f"{accum[0]:.3e} / {accum[1]:.3e}; resume gaps "
+          f"{resume['loss_gap']:.3e} / {resume['w_gap']:.3e}", flush=True)
+    return dict(full, launches=launches, max_err=max_err)
 
 
 def make_overlay(keys: np.ndarray, rng, device, n_up: int = 1000,
@@ -3028,7 +3457,9 @@ def main() -> int:
 
     # -- 11. the paper's competitors beside DILI, counted --------------------
     kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
-    comp = competitors_path(*local_bulk, args.seed, dev, card)
+    comp = competitors_path(*local_bulk, args.seed, dev, card,
+                            lipp_keys=f32_exact_keys(
+                                min(args.keys, LOCAL_F32_KEYS), args.seed))
     if comp["launches"] == 0:
         raise AssertionError("the competitors path launched the f64 kernel "
                              "no time")
@@ -3046,6 +3477,11 @@ def main() -> int:
     llm = llm_path(args.seed, dev, card)
     entry64["launches"] += llm["launches"]
     entry64["max_abs_err"] = max(entry64["max_abs_err"], llm["max_err"])
+
+    # -- 13. llm train: the LLM training path on the card, counted ----------
+    train = train_path(args.seed, dev, card)
+    entry64["launches"] += train["launches"]
+    entry64["max_abs_err"] = max(entry64["max_abs_err"], train["max_err"])
     print(f"summary: serve on the local 1M index: the ramp's best "
           f"achieved rate {serve['ramp_best']:.1f} ops/s, the highest "
           f"offered rate a leg held {serve['sustained']:.1f} ops/s; sharded "
@@ -3056,7 +3492,9 @@ def main() -> int:
           f"{compare['background']['p99']:.3f}/{compare['sync']['p99']:.3f} "
           f"ms; competitors fastest first {' < '.join(comp_order)}; "
           f"{LLM_ARCH} decode {llm['decode_ms']:.3f} ms a step against a "
-          f"{llm['bounds']['decode']['ms']:.3f} ms bound; the whole script "
+          f"{llm['bounds']['decode']['ms']:.3f} ms bound; {TRAIN_ARCH} at "
+          f"{TRAIN_LAYERS} layers trains {train['step_ms']:.3f} ms a step "
+          f"against a {train['bounds']['ms']:.3f} ms bound; the whole script "
           f"{time.perf_counter() - T_START:.1f} s",
           flush=True)
 

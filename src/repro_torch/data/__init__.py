@@ -1,1 +1,2 @@
-"""Synthetic key datasets (copied from the JAX package)."""
+"""Synthetic key datasets, the DILI record store and the token pipelines
+(copied from the JAX package)."""

@@ -16,6 +16,14 @@ The state is a nested dict (lists and tuples allowed) of tensors or
 arrays in place of a JAX pytree.  Leaves are flattened in the reference's
 order — dict keys sorted, sequences by index — and named by the same
 "/"-joined paths, so the manifests of the two packages are equal.
+
+A bfloat16 leaf is saved as the reference saves one: its bits as a 2-byte
+void array under the `'<V2'` header that ml_dtypes' bfloat16 gives
+`np.savez` (`_write_npz`), so the npz members, the CRC32s and the
+manifest are the reference's.  Such a leaf reads back as `|V2`, which
+neither package casts to a dtype: `restore` skips that step, as the
+reference does (`a.astype(tmpl.dtype)` fails there), and the walk falls
+back.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import zipfile
 import zlib
 
 import numpy as np
@@ -123,10 +132,35 @@ def _path_name(path) -> str:
     return "/".join(str(k) for k in path)
 
 
-def _to_numpy(leaf) -> np.ndarray:
+BF16_DESCR = "<V2"     # the npy header of an ml_dtypes bfloat16 array
+
+
+def to_numpy(leaf) -> np.ndarray:
+    """A leaf as the host array the reference saves: a bfloat16 tensor as
+    its bits in a 2-byte void array (`.numpy()` has no bfloat16)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _write_npz(path: str, arrays: dict) -> None:
+    """`np.savez`'s archive (stored, zip64 members `<key>.npy`), with a
+    2-byte void leaf under the bfloat16 header the reference writes,
+    which a plain void dtype cannot carry (numpy writes it as `|V2`)."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, a in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if a.dtype == np.dtype("V2"):
+                    np.lib.format.write_array_header_1_0(fid, dict(
+                        descr=BF16_DESCR, fortran_order=False,
+                        shape=a.shape))
+                    fid.write(np.ascontiguousarray(a).tobytes())
+                else:
+                    np.lib.format.write_array(fid, a, allow_pickle=False)
 
 
 def save(ckpt_dir: str, step: int, state, extra: dict | None = None,
@@ -138,10 +172,10 @@ def save(ckpt_dir: str, step: int, state, extra: dict | None = None,
     checksums = {}
     for i, (_, leaf) in enumerate(flat):
         key = f"leaf_{i:05d}"
-        a = _to_numpy(leaf)
+        a = to_numpy(leaf)
         arrays[key] = a
         checksums[key] = zlib.crc32(a.tobytes())
-    np.savez(os.path.join(tmp, "shard_00000.npz"), **arrays)
+    _write_npz(os.path.join(tmp, "shard_00000.npz"), arrays)
     manifest = dict(step=step, paths=[_path_name(p) for p, _ in flat],
                     checksums=checksums, extra=extra or {})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -174,6 +208,10 @@ def _load_dir(path: str, template, device, prefix: str = ""):
             if tuple(a.shape) != tuple(tmpl.shape):
                 raise IOError(f"shape mismatch for {tname}: {a.shape} vs "
                               f"{tuple(tmpl.shape)}")
+            if a.dtype.kind == "V":
+                # the reference's `astype` has no cast from a void array
+                raise IOError(f"{tname}: no cast from {a.dtype.str} to "
+                              f"{_torch_dtype(tmpl)}")
             leaves.append(torch.from_numpy(a).to(
                 device=device, dtype=_torch_dtype(tmpl)))
     return _unflatten(template, iter(leaves)), manifest

@@ -1,1 +1,1 @@
-"""Launchers (port of `repro/launch/`): so far the serving one."""
+"""Launchers (port of `repro/launch/`): serving and training on one card."""

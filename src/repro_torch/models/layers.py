@@ -29,7 +29,8 @@ class Init:
     """Where a model's weights come from: normals drawn on `device` from
     `generator` (f32, scaled, then cast), or, without a generator, tensors
     left unset (`torch.empty`) for a caller that fills them.  Weights are
-    made without gradients: this slice serves."""
+    made without gradients; the trainer turns them on
+    (`train.step.init_state`)."""
 
     def __init__(self, device: torch.device, generator=None):
         self.device = device

@@ -10,7 +10,7 @@ Families:
   audio        — whisper-style encoder-decoder (frontend stubbed)
   vlm          — dense backbone consuming precomputed patch embeds + tokens
 The `ssm` and `hybrid` families need the mamba blocks, which come with the
-training slice (ROADMAP item 11b); here they raise `NotImplementedError`.
+next slice (ROADMAP item 11c); here they raise `NotImplementedError`.
 
 The weights are one `LM` module whose layers are an `nn.ModuleList` of
 per-layer modules (the reference stacks them under a scan).  Entry points
@@ -18,13 +18,26 @@ keep the reference's names and take the module where it takes the param
 tree: init_params, params_from_reference, forward_train, loss_fn,
 make_cache, prefill, decode_step.  The serving ones (prefill, decode_step)
 run without autograd and write the KV cache in place at its position.
+`param_tree` gives the module's parameters in the reference's tree, each
+stacked leaf as the list of its per-layer tensors, and `host_tree` stacks
+such a tree on the host into the reference's arrays.
+
+Under autograd, `cfg.remat` maps onto `torch.utils.checkpoint` per layer,
+as the reference's `_remat` wraps its scanned layer body: `none` keeps
+every activation, `full` recomputes the whole layer in the backward, and
+`dots` keeps the weight products (the `aten.mm` outputs of `L.mm`) and
+recomputes the rest, as `checkpoint_dots_with_no_batch_dims` does (the
+attention and expert einsums have batch dimensions and are recomputed).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
 from . import layers as L
@@ -36,8 +49,8 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family needs models/mamba.py, "
-            f"which the port takes with the training slice (ROADMAP item "
-            f"11b)")
+            f"which the port takes with the slice after the training path "
+            f"(ROADMAP item 11c)")
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +177,37 @@ def params_from_reference(cfg: ModelConfig, tree, device="cuda") -> LM:
     return model
 
 
+def param_tree(model: LM) -> dict:
+    """The module's parameters (its own tensors) in the reference's
+    `init_params` tree: nested dicts keyed as there, where a stacked leaf
+    (`layers`, `encoder`, `cross`) is the list of its per-layer
+    parameters in layer order."""
+    tree = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        stacked = parts[0] in _STACKED
+        path = (parts[0],) + tuple(parts[2:]) if stacked else tuple(parts)
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        if stacked:     # the ModuleList yields its layers in order
+            node.setdefault(path[-1], []).append(p)
+        else:
+            node[path[-1]] = p
+    return tree
+
+
+def host_tree(tree, to_numpy) -> dict:
+    """A tree of tensors and stacks (`param_tree`'s layout) as the
+    reference's arrays: each tensor through `to_numpy`, each stack's
+    slices stacked on the host along a leading axis."""
+    if isinstance(tree, dict):
+        return {k: host_tree(v, to_numpy) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return np.stack([to_numpy(t) for t in tree])
+    return to_numpy(tree)
+
+
 # ---------------------------------------------------------------------------
 # layer application
 # ---------------------------------------------------------------------------
@@ -215,6 +259,41 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default,)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_BY_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(f, cfg: ModelConfig):
+    """`f` (one layer) under the reference's `_remat` rule, when autograd
+    records: a checkpointed call for `full` and `dots`."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return f
+    if cfg.remat == "full":
+        return functools.partial(ckpt.checkpoint, f, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, f, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
+def _decoder_layer(pl_: Block, pc, cfg, i, x, positions, rot, enc, h=None):
+    """One decoder layer: (x, aux).  `h` is its first norm when the caller
+    has it."""
+    if h is None:
+        h = L.rms_norm(x, pl_.norm1, cfg.norm_eps)
+    a = L.attention(pl_.attn, cfg, h, positions, causal=True,
+                    window=_window(cfg, i), rot=rot)
+    # whisper: self-attn -> cross-attn -> FFN
+    return _after_attn(pl_, cfg, x, a, pc, enc)
+
+
 def _run_decoder(params: LM, cfg: ModelConfig, x, positions, *,
                  make_cache_out=False, enc_out=None, enc_positions=None):
     """Over the layers in order.  Returns (x, aux_loss, cache_kv or None).
@@ -224,15 +303,14 @@ def _run_decoder(params: LM, cfg: ModelConfig, x, positions, *,
     cache = [] if make_cache_out else None
     enc = (enc_out, enc_positions, positions)
     rot = L.rope_rotation(positions, cfg.hd, cfg.rope_theta)
+    layer = _remat(_decoder_layer, cfg)
     for i, pl_ in enumerate(params.layers):
-        h = L.rms_norm(x, pl_.norm1, cfg.norm_eps)
-        if make_cache_out:
-            cache.append(L.project_kv(pl_.attn, cfg, h, positions, rot))
-        a = L.attention(pl_.attn, cfg, h, positions, causal=True,
-                        window=_window(cfg, i), rot=rot)
-        # whisper: self-attn -> cross-attn -> FFN
         pc = params.cross[i] if cfg.is_encdec else None
-        x, a2 = _after_attn(pl_, cfg, x, a, pc, enc)
+        h = None
+        if make_cache_out:
+            h = L.rms_norm(x, pl_.norm1, cfg.norm_eps)
+            cache.append(L.project_kv(pl_.attn, cfg, h, positions, rot))
+        x, a2 = layer(pl_, pc, cfg, i, x, positions, rot, enc, h)
         aux = aux + a2
     return x, aux, cache
 
@@ -250,12 +328,17 @@ def run_encoder(params: LM, cfg: ModelConfig, frames):
     b, t, _ = frames.shape
     positions = _positions(b, t, frames.device)
     x = frames
+    layer = _remat(_encoder_layer, cfg)
     for pl_ in params.encoder:
-        h = L.rms_norm(x, pl_.norm1, cfg.norm_eps)
-        x = x + L.attention(pl_.attn, cfg, h, positions, causal=False)
-        h = L.rms_norm(x, pl_.norm2, cfg.norm_eps)
-        x = x + L.mlp(pl_.mlp, cfg, h)
+        x = layer(pl_, cfg, x, positions)
     return L.rms_norm(x, params.enc_norm, cfg.norm_eps)
+
+
+def _encoder_layer(pl_: EncoderBlock, cfg, x, positions):
+    h = L.rms_norm(x, pl_.norm1, cfg.norm_eps)
+    x = x + L.attention(pl_.attn, cfg, h, positions, causal=False)
+    h = L.rms_norm(x, pl_.norm2, cfg.norm_eps)
+    return x + L.mlp(pl_.mlp, cfg, h)
 
 
 def _inputs(params: LM, cfg, tokens, extra_embeds, enc_frames):

@@ -1,1 +1,2 @@
-"""Step factories (port of `repro/train/`): so far the serve steps."""
+"""Optimizers and step factories (port of `repro/train/`): AdamW,
+Adafactor, the train step and the serve steps."""

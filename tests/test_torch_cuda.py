@@ -733,3 +733,43 @@ def test_llm_reduced_on_gpu_matches_cpu(gpu, arch, monkeypatch):
     assert torch.equal(t_gpu, t_cpu)
     for a, b in zip(l_gpu, l_cpu):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("arch", LLM_ARCHS)
+def test_train_reduced_on_gpu_matches_cpu(gpu, arch, monkeypatch):
+    """A reduced LLM in f32 with remat off (weights from the port's seeded
+    init on the CPU, the same moved to the card), one AdamW train step
+    on CUDA and on the CPU: loss and grad norm within 1e-4 relative, the
+    updated first moments (0.1 of each clipped gradient) within 1e-4 of
+    each leaf's largest magnitude, with TF32 off."""
+    import dataclasses
+    from repro_torch.train import optim as O
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_llm_config(arch).reduced(), remat="none")
+    lead = (cfg.accum_steps,) if cfg.accum_steps > 1 else ()
+    rng = np.random.default_rng(0)
+    batch = dict(tokens=rng.integers(0, cfg.vocab, lead + (2, 12)),
+                 labels=rng.integers(0, cfg.vocab, lead + (2, 12)))
+    if cfg.family == "vlm":
+        batch["extra_embeds"] = rng.standard_normal(
+            lead + (2, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        batch["enc_frames"] = rng.standard_normal(
+            lead + (2, cfg.frontend_seq, cfg.d_model)).astype(np.float32)
+    runs = []
+    for dev in (torch.device("cpu"), gpu):
+        opt = O.adamw(lr=1e-3)
+        model = MDL.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu").to(dev)
+        state = dict(params=model, opt=opt.init(MDL.param_tree(model)),
+                     step=torch.zeros((), dtype=torch.int32, device=dev))
+        state, m = STEP.make_train_step(cfg, opt)(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        assert state["opt"]["step"].device.type == dev.type
+        runs.append((float(m["loss"]), float(m["grad_norm"]),
+                     [t.cpu() for t in O.tree_tensors(state["opt"]["mu"])]))
+    (l_cpu, n_cpu, mu_cpu), (l_gpu, n_gpu, mu_gpu) = runs
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    assert abs(n_gpu - n_cpu) <= 1e-4 * abs(n_cpu)
+    for a, b in zip(mu_gpu, mu_cpu):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

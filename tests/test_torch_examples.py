@@ -152,3 +152,45 @@ def test_serve_llm_facts_equal_reference(capsys):
     out = capsys.readouterr().out
     for line in _serve_llm_facts(16, 8, 4):
         assert line in out, (line, out)
+
+
+def test_train_lm_store_and_batches_equal_reference():
+    """The training example's corpus (`build_store` at the `cpu` preset)
+    and its `StorePipeline` batches, bit for bit against the reference's
+    example."""
+    ref, port = _example("train_lm"), _example("train_lm_torch")
+    jstore, jkeys = ref.build_store(ref.build_cfg("cpu"))
+    store, keys = port.build_store(port.build_cfg("cpu"), device="cpu")
+    assert np.array_equal(keys, jkeys)
+    assert np.array_equal(store.arena, jstore.arena)
+    jp = ref.StorePipeline(jstore, jkeys, seq_len=64, batch=4)
+    tp = port.StorePipeline(store, keys, seq_len=64, batch=4)
+    for step in (0, 1, 9):
+        a, b = jp.batch_at(step), tp.batch_at(step)
+        for k in ("tokens", "labels"):
+            assert np.array_equal(a[k], b[k])
+    store.index.close()
+
+
+def test_train_lm_fails_and_resumes(tmp_path, capsys):
+    """`--fail-at-step 3` exits 42 after the step-2 checkpoint; the rerun
+    resumes there and ends on the uninterrupted run's losses and weights,
+    exactly (the CPU's ops are deterministic)."""
+    import pytest
+    import torch
+    mod = _example("train_lm_torch")
+    args = ["--device", "cpu", "--steps", "6", "--batch", "2", "--seq",
+            "16", "--ckpt-every", "2"]
+    full = mod.main(args + ["--ckpt-dir", str(tmp_path / "full")])
+    cut = args + ["--ckpt-dir", str(tmp_path / "cut")]
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as ex:
+        mod.main(cut + ["--fail-at-step", "3"])
+    assert ex.value.code == 42
+    assert "SIMULATED NODE FAILURE at step 3" in capsys.readouterr().out
+    again = mod.main(cut)
+    assert "[train] resumed from step 2" in capsys.readouterr().out
+    assert again["start"] == 2 and again["losses"] == full["losses"][2:]
+    for a, b in zip(again["state"]["params"].parameters(),
+                    full["state"]["params"].parameters()):
+        assert torch.equal(a, b)

@@ -14,7 +14,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "kernel_bench.py",
     ROOT / "examples" / "quickstart_torch.py",
     ROOT / "examples" / "distributed_index_torch.py",
-    ROOT / "examples" / "serve_llm_torch.py"]
+    ROOT / "examples" / "serve_llm_torch.py",
+    ROOT / "examples" / "train_lm_torch.py"]
 
 
 def test_import_with_jax_blocked():

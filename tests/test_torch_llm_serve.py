@@ -18,32 +18,17 @@ from repro.configs import get_config, list_archs
 from repro.models import model as JM
 from repro.train import step as JSTEP
 from repro_torch.launch import serve as LS
+from repro_torch.models import model as MDL
 
 ARGS = ["--reduced", "--device", "cpu", "--requests", "8", "--batch", "4",
         "--prompt-len", "8", "--tokens", "4", "--frontend-threads", "4"]
-STACKED = ("layers", "encoder", "cross")
 
 
 def _reference_tree(model) -> dict:
     """The port's weights as the reference's `init_params` tree (per-layer
     modules stacked along a leading axis)."""
-    tree, stacks = {}, {}
-    for name, p in model.named_parameters():
-        parts = name.split(".")
-        a = p.detach().numpy()
-        if parts[0] in STACKED:
-            stacks.setdefault((parts[0],) + tuple(parts[2:]), []).append(a)
-            continue
-        node = tree
-        for k in parts[:-1]:
-            node = node.setdefault(k, {})
-        node[parts[-1]] = jnp.asarray(a)
-    for path, arrs in stacks.items():
-        node = tree
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = jnp.asarray(np.stack(arrs))
-    return tree
+    return jax.tree.map(jnp.asarray, MDL.host_tree(
+        MDL.param_tree(model), lambda t: t.detach().numpy()))
 
 
 def _reference_generate(cfg, params, prompts, batch, tokens) -> np.ndarray:

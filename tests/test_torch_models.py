@@ -100,7 +100,7 @@ def test_torch_dtype_and_unported_families():
                               family="ssm")
     for call in (lambda: MDL.init_params(ssm, device=CPU),
                  lambda: MDL.make_cache(ssm, 1, 4, device=CPU)):
-        with pytest.raises(NotImplementedError, match="11b"):
+        with pytest.raises(NotImplementedError, match="11c"):
             call()
 
 
