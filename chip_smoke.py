@@ -86,17 +86,19 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      replayed records, the recovery's bulk load, upsert p50/p99, the
      share of upsert time in `wal.append`, `inspect()["wal"]` and the
      directory's bytes; the f64 kernel must have launched;
-  9. the sharded engine on the local path's `--keys` f64 logn keys,
-     `IndexConfig(engine="sharded", n_shards=8, telemetry=True)`: 2^20
+  9. the sharded engine on `--keys` f64 logn keys (at most 250k, the
+     durable path's), `IndexConfig(engine="sharded", n_shards=8,
+     telemetry=True)`: 2^20
      lookups on the gather strategy, on a2a a uniform batch (its overflow
      counts printed) and a batch skewed into shard 0 that must overflow
      and come back exact through the gather fallback, 4096 range
      queries, writes, a flush and `items()`, each held against a numpy
      truth; shard 0's tables with the combined overlay held to the plain
      version; prints launches per lookup, host ms, the graph-timed
-     device ms of one lookup's 8 launches against the local path's one
-     launch over the same batch, and the per-shard table bytes; the f64
-     kernel must have launched;
+     device ms of one lookup's 8 launches against one launch over the
+     same batch on the durable path's recovered local index, the
+     per-shard table bytes, and what the cut to 250k saved against the
+     local path's 1M build; the f64 kernel must have launched;
  10. background against synchronous maintenance (the reference's
      serving config: sample_stride=4, overlay_cap=8192) on 250k
      even-integer keys: the ramp on a background index of its own, then
@@ -152,8 +154,25 @@ Phases (any failure exits nonzero; nothing falls back to the CPU):
      with 2 layers in f32 (loss 1e-5, grad norm 1e-4 relative), and
      `examples/train_lm_torch.py --preset cpu` on the card failed at step
      6 (exit 42) and resumed from its step-4 checkpoint, its losses and
-     weights against an uninterrupted run within 1e-5.  Then the whole
-     script's seconds.
+     weights against an uninterrupted run within 1e-5;
+ 14. ssm / hybrid / parallel (`models/mamba.py`, `parallel/`,
+     `launch/{mesh,specs,dryrun,bounds}.py`) on the seed's two configs,
+     built here (no config in `configs/` has either family):
+     falcon-mamba-7b (Mamba-1) and zamba2-1.2b (Mamba-2 with a shared
+     attention block every 6 layers): their reduced configs in f32 card
+     against CPU as in phases 12 and 13; each served uncut in bf16,
+     prefill of [8, 32] and 8 greedy decode steps, then prefill and decode
+     ms on CUDA events beside their bounds, kernels a decode step and the
+     idle share, peak memory; the decode property at full width in f32
+     (falcon-mamba 2 layers, zamba2 12 layers: two shared sites, both
+     used); each trained at full width in bf16 as in phase 13 (zamba2
+     whole, falcon-mamba 8 of its 64 layers), whose store lookups must
+     launch the f64/i64 kernel, held to its plain version; the GPipe
+     schedule at granite-8b's width (4 layers, 4 stages, 4 microbatches,
+     f32) against `forward_train` within 1e-5; `psum_int8` on the card
+     bit-equal to the CPU's; and the dry run of every (arch x shape)
+     cell, single and multi-pod, against the card's memory.  Then the
+     whole script's seconds.
 The last two lines are the kernels JSON object and the `{"ok": true, ...}`
 result.  Needs `torch` with CUDA, `nvcc`, and `nvidia-smi`.
 """
@@ -187,10 +206,15 @@ LOCAL_F32_KEYS = 250_000
 # joined; the serve comparison's two indexes take this size too.
 DURABLE_KEYS = 250_000
 SERVE_COMPARE_KEYS = 250_000
+# The sharded path builds its own index of 8 shards: cut the same way
+# since phase 14 joined (its 1M host build took 113-170 s); its device-time
+# comparison takes the durable path's recovered index over the same keys.
+SHARDED_KEYS = 250_000
 T_START = time.perf_counter()
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-F32_FLOPS = 67e12                # H100 SXM data sheet, non-tensor f32
-F64_FLOPS = 34e12                # H100 SXM data sheet, non-tensor f64
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.launch.bounds import (BF16_FLOPS, F32_FLOPS,  # noqa: E402
+                                       F64_FLOPS, HBM_BYTES_PER_S,
+                                       llm_bounds, train_bounds)
 
 
 def card_line() -> str:
@@ -1203,7 +1227,7 @@ def _load_crash_kit():
     return kit
 
 
-def durable_path(n_keys: int, seed: int, device) -> None:
+def durable_path(n_keys: int, seed: int, device) -> tuple:
     """Durability on the local engine: build f64 logn keys with
     `IndexConfig(telemetry=True, durability=DurabilityConfig(dir=<a fresh
     temporary directory>))` (fsync "interval", a checkpoint after every
@@ -1214,7 +1238,9 @@ def durable_path(n_keys: int, seed: int, device) -> None:
     `device`, and the stream finished on the recovered index; then a
     2^20-query lookup batch through the recovered index held to the
     oracle, and the port's crash child killed at three points and
-    recovered on `device`.  Any divergence raises."""
+    recovered on `device`.  Any divergence raises.  Returns the recovered
+    index's kernel tables, overlay mirror and that batch on the device
+    (the sharded path's one-launch comparison over the same keys)."""
     import json as _json
     import shutil
     import tempfile
@@ -1344,6 +1370,9 @@ def durable_path(n_keys: int, seed: int, device) -> None:
               f"oracle, median of five {lookup_ms:.4f} ms; inspect wal "
               f"{wal_doc}; directory {dir_b} B in {dir_n} files",
               flush=True)
+        oi = rx._engine.oi
+        timing = (oi.store.kernel_tables, oi._overlay_arrays(),
+                  torch.from_numpy(q).to(dev))
         rx.close()
         del ix, rx, runner
 
@@ -1363,6 +1392,7 @@ def durable_path(n_keys: int, seed: int, device) -> None:
               flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return timing
 
 
 SHARDS = 8
@@ -1377,9 +1407,10 @@ def sharded_path(n_keys: int, seed: int, device, local_timing=None) -> dict:
     4096 range queries, writes in batches of 1000, a flush and `items()`,
     each held against a numpy truth; one shard's tables with the combined
     overlay held to the plain version bit for bit; graph-timed device ms
-    of one lookup's per-shard launches against `local_timing` (the local
-    path's tables, overlay and timed batch: one launch over the same
-    keys).  Returns the numbers it printed."""
+    of one lookup's per-shard launches against `local_timing` (a local
+    index's tables, overlay and 2^20 batch over the same keys: the
+    durable path's recovered index, one launch).  Returns the numbers it
+    printed."""
     from dataclasses import replace
     import torch
     from repro_torch.api import IndexConfig, LearnedIndex
@@ -1552,7 +1583,8 @@ def sharded_path(n_keys: int, seed: int, device, local_timing=None) -> dict:
         print(f"sharded device time of one 2^20-query gather lookup: the "
               f"{len(shards)} per-shard launches {out['sharded_dev_ms']:.5f} "
               f"ms (rounds {[round(x, 5) for x in rounds['sharded']]}) "
-              f"against the local path's one launch over the same batch "
+              f"against the durable path's recovered local index's one "
+              f"launch over the same batch "
               f"{out['local_dev_ms']:.5f} ms (rounds "
               f"{[round(x, 5) for x in rounds['local']]}); lanes per shard "
               f"{counts[:SHARDS]}; every shard over the whole batch, as the "
@@ -2063,7 +2095,6 @@ LLM_SERVE_ARGV = ["--arch", LLM_ARCH, "--requests", "16", "--batch", "8",
                   "--prompt-len", "32", "--tokens", "8",
                   "--frontend-threads", "4"]
 LLM_TIMED_STEPS = 16             # decode steps between two CUDA events
-BF16_FLOPS = 989e12              # H100 SXM data sheet, dense bf16
 
 
 def llm_inputs(cfg, B: int, S: int, seed: int, device) -> tuple:
@@ -2083,19 +2114,24 @@ def llm_inputs(cfg, B: int, S: int, seed: int, device) -> tuple:
             {k: torch.from_numpy(v).to(device) for k, v in kw.items()})
 
 
-def llm_reduced_vs_cpu(seed: int, device) -> float:
-    """Each assigned architecture's reduced config in f32, weights from the
-    port's seeded init on the CPU moved to `device`: prefill of [2, 12] and
-    LLM_STEPS greedy decode steps there and on the CPU.  Greedy tokens must
-    be equal and every logit within LLM_ATOL.  Returns the largest gap."""
-    import torch
+def reduced_archs() -> dict:
+    """Each assigned architecture's reduced config (f32)."""
     from repro_torch.configs import get_config, list_archs
+    return {a: get_config(a).reduced() for a in list_archs()}
+
+
+def llm_reduced_vs_cpu(seed: int, device, cfgs: dict) -> float:
+    """Each reduced config of `cfgs` (name -> config, f32), weights from
+    the port's seeded init on the CPU moved to `device`: prefill of
+    [2, 12] and LLM_STEPS greedy decode steps there and on the CPU.
+    Greedy tokens must be equal and every logit within LLM_ATOL.  Returns
+    the largest gap."""
+    import torch
     from repro_torch.models import model as MDL
     from repro_torch.train import step as STEP
     B, S = 2, 12
     worst = 0.0
-    for arch in list_archs():
-        cfg = get_config(arch).reduced()
+    for arch, cfg in cfgs.items():
         runs = []
         for d in ("cpu", device):
             model = MDL.init_params(cfg, torch.Generator().manual_seed(seed),
@@ -2152,41 +2188,12 @@ def llm_serve(argv, tables: list) -> dict:
     return rep
 
 
-def llm_bounds(model, cfg, B: int, P: int, pos: int) -> dict:
-    """Least ms of a prefill of [B, P] and of one decode step at `pos`: the
-    larger of the bytes each must move over HBM (each weight read once,
-    but of the token table only the B x S rows looked up; the KV written,
-    and for decode the KV up to `pos` read; the logits written) and its
-    operations at the card's bf16 peak (2 per weight per token, the last
-    token's head, and causal attention)."""
-    elt = model.embed.tok.element_size()
-    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    tok = model.embed.tok.numel() * elt
-    body = sum(p.numel() for n, p in model.named_parameters()
-               if n.startswith("layers."))
-    head = cfg.vocab * cfg.d_model
-    kv_row = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * elt
-    att = 2 * 2 * cfg.n_layers * cfg.n_heads * cfg.hd
-
-    def bound(tokens, kv_read, ops):
-        moved = (wbytes - tok + tokens * cfg.d_model * elt
-                 + tokens * kv_row + kv_read + B * cfg.vocab * 4)
-        b_ms, o_ms = moved / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
-        return dict(ms=max(b_ms, o_ms), bytes=moved, ops=ops,
-                    by="bytes" if b_ms >= o_ms else "operations")
-
-    n = B * P
-    prefill = bound(n, 0, 2 * n * body + 2 * B * head
-                    + att * B * P * (P + 1) // 2)
-    decode = bound(B, B * pos * kv_row,
-                   2 * B * (body + head) + att * B * (pos + 1))
-    return dict(prefill=prefill, decode=decode, weight_bytes=wbytes)
-
-
-def llm_numbers(rep: dict, seed: int, device, card: str) -> dict:
+def llm_numbers(rep: dict, seed: int, device, card: str,
+                profiled: tuple = (2, 4)) -> dict:
     """The served model's weight bytes and memory, prefill of [8, 32] and
-    decode ms per step on CUDA events (each beside its bound), and where a
-    decode step's time goes."""
+    decode ms per step on CUDA events (each beside its bound), and where
+    the time of `profiled` = (prefills, decode steps) run under
+    torch.profiler goes (0: not profiled)."""
     import torch
     from repro_torch.models import model as MDL
     from repro_torch.train import step as STEP
@@ -2202,8 +2209,10 @@ def llm_numbers(rep: dict, seed: int, device, card: str) -> dict:
     for _ in range(2):
         prefill(model, batch, cache)
     prefill_ms = cuda_ms(lambda: prefill(model, batch, cache), 5)
-    p_wall_us, p_by_name = device_events(lambda: prefill(model, batch,
-                                                         cache), reps=2)
+    n_pre, n_dec = profiled
+    p_wall_us, p_by_name = (device_events(lambda: prefill(model, batch,
+                                                          cache), reps=n_pre)
+                            if n_pre else (0.0, {}))
     p_busy_us = sum(us for us, _ in p_by_name.values())
     logits, cache = prefill(model, batch, cache)
     st = dict(tok=torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32),
@@ -2216,13 +2225,14 @@ def llm_numbers(rep: dict, seed: int, device, card: str) -> dict:
         step()
     pos = st["cache"]["pos"]
     decode_ms = cuda_ms(step, LLM_TIMED_STEPS)
-    wall_us, by_name = device_events(step, reps=4)
+    wall_us, by_name = (device_events(step, reps=n_dec) if n_dec
+                        else (0.0, {}))
     busy_us = sum(us for us, _ in by_name.values())
-    launches = sum(c for _, c in by_name.values()) / 4
+    launches = sum(c for _, c in by_name.values()) / max(n_dec, 1)
     bd = llm_bounds(model, cfg, B, P, pos + LLM_TIMED_STEPS // 2)
     out = dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
                bounds=bd,
-               decode_busy_ms=busy_us / 4e3 if by_name else None,
+               decode_busy_ms=busy_us / (n_dec * 1e3) if by_name else None,
                decode_idle=1 - busy_us / wall_us if by_name else None,
                decode_launches=launches if by_name else None,
                prefill_idle=1 - p_busy_us / p_wall_us if p_by_name else None)
@@ -2235,22 +2245,24 @@ def llm_numbers(rep: dict, seed: int, device, card: str) -> dict:
           f"(bound "
           f"{bd['decode']['ms']:.3f} ms by {bd['decode']['by']}: "
           f"{bd['decode']['bytes']} B over {HBM_BYTES_PER_S:.3g} B/s, "
-          f"{bd['decode']['ops']} ops; {decode_ms / bd['decode']['ms']:.2f}x "
+          f"{bd['decode']['ops']} ops, {bd['decode']['elementwise_ops']} "
+          f"f32 element-wise ops; {decode_ms / bd['decode']['ms']:.2f}x "
           f"the bound)", flush=True)
     if p_by_name:
-        entries = sum(c for _, c in p_by_name.values()) / 2
-        print(f"  prefill: device busy {p_busy_us / 2e3:.3f} ms of "
-              f"{p_wall_us / 2e3:.3f} ms wall (idle "
+        entries = sum(c for _, c in p_by_name.values()) / n_pre
+        print(f"  prefill: device busy {p_busy_us / (n_pre * 1e3):.3f} ms of "
+              f"{p_wall_us / (n_pre * 1e3):.3f} ms wall (idle "
               f"{out['prefill_idle']:.4f}), {entries:.0f} device entries",
               flush=True)
     if by_name:
         print(f"  decode step: device busy {out['decode_busy_ms']:.3f} ms of "
-              f"{wall_us / 4e3:.3f} ms wall (idle {out['decode_idle']:.4f}), "
-              f"{launches:.0f} device entries a step; top:", flush=True)
+              f"{wall_us / (n_dec * 1e3):.3f} ms wall (idle "
+              f"{out['decode_idle']:.4f}), {launches:.0f} device entries a "
+              f"step (over {n_dec} under torch.profiler); top:", flush=True)
         for name, (us, c) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:6]:
-            print(f"    {us / 4e3:9.3f} ms  x{c / 4:.0f}  {name[:80]}",
-                  flush=True)
+            print(f"    {us / (n_dec * 1e3):9.3f} ms  x{c / n_dec:.0f}  "
+                  f"{name[:80]}", flush=True)
     else:
         print("  decode step breakdown: not measured (three profiler "
               "sessions saw no device events)", flush=True)
@@ -2297,7 +2309,7 @@ def llm_path(seed: int, device, card: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     print("llm: the six reduced archs (f32), prefill and "
           f"{LLM_STEPS} greedy decode steps, card against CPU:", flush=True)
-    llm_err = llm_reduced_vs_cpu(seed, device)
+    llm_err = llm_reduced_vs_cpu(seed, device, reduced_archs())
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
@@ -2380,8 +2392,8 @@ def _rel_gap(a, b) -> float:
     return gap / scale if scale else gap
 
 
-def train_reduced_vs_cpu(seed: int, device) -> dict:
-    """Phase 13a: each assigned architecture's reduced config in f32 with
+def train_reduced_vs_cpu(seed: int, device, cfgs: dict) -> dict:
+    """Phase 13a: each reduced config of `cfgs` (name -> config, f32) with
     remat off, weights from the port's seeded init on the CPU moved to
     `device`: one step's loss, grad norm and every gradient leaf there and
     on the CPU, then 3 AdamW train steps' losses.  Every gap is relative
@@ -2389,13 +2401,12 @@ def train_reduced_vs_cpu(seed: int, device) -> dict:
     TRAIN_RTOL.  Returns the largest gaps."""
     import dataclasses
     import torch
-    from repro_torch.configs import get_config, list_archs
     from repro_torch.models import model as MDL
     from repro_torch.train import optim as O
     from repro_torch.train import step as STEP
     worst = dict(loss=0.0, grad_norm=0.0, grad=0.0, steps=0.0)
-    for arch in list_archs():
-        cfg = dataclasses.replace(get_config(arch).reduced(), remat="none")
+    for arch, cfg in cfgs.items():
+        cfg = dataclasses.replace(cfg, remat="none")
         runs = []
         for d in ("cpu", device):
             model = MDL.init_params(cfg, torch.Generator().manual_seed(seed),
@@ -2438,6 +2449,24 @@ def train_reduced_vs_cpu(seed: int, device) -> dict:
     return worst
 
 
+def store_lookups_vs_plain(lookups: list, device) -> float:
+    """The f64/i64 kernel against its plain version on each record store
+    lookup `train_full` kept: its tables and overlay, its keys padded as
+    the facade pads them, and the keys alone."""
+    import torch
+    print(f"f64 kernel vs plain on the record store ({len(lookups)} "
+          f"lookups):", flush=True)
+    max_err = 0.0
+    for i, (arrs, ov, lanes, picks) in enumerate(lookups):
+        q = torch.from_numpy(np.concatenate(
+            [picks, np.full(max(lanes - len(picks), 0), picks[0])])).to(
+                device)
+        max_err = max(max_err, kernel_vs_plain(
+            arrs, {f"lookup{i}_padded": q, f"lookup{i}": q[:len(picks)]},
+            "store", ov=ov))
+    return max_err
+
+
 def _example_module(name: str):
     import importlib.util
     spec = importlib.util.spec_from_file_location(
@@ -2447,51 +2476,20 @@ def _example_module(name: str):
     return mod
 
 
-def train_bounds(model, cfg, tokens: int) -> dict:
-    """Least ms of one AdamW train step on `tokens` tokens: the larger of
-    its bytes over HBM (each weight read twice, forward and backward, but
-    of the token table only the rows looked up; the gradients written,
-    then read and written by the clip; AdamW's read of parameter, clipped
-    gradient and both f32 moments and write of parameter and moments) and
-    its operations at the card's bf16 peak (6 per matmul weight per
-    token, and causal attention's forward and backward)."""
-    tok = model.embed.tok
-    params = list(model.named_parameters())
-    n = sum(p.numel() for _, p in params)
-    e = tok.element_size()
-    wbytes = n * e
-    mat = sum(p.numel() for name, p in params
-              if p.dim() >= 2 and name != "embed.tok")
-    if cfg.tie_embeddings:
-        mat += tok.numel()
-    reads = 2 * (wbytes - tok.numel() * e + tokens * cfg.d_model * e)
-    grads = 3 * wbytes
-    adamw = n * (2 * e + e + 16)
-    moved = reads + grads + adamw
-    seq = TRAIN_SEQ
-    att = 3 * 2 * 2 * cfg.n_layers * cfg.n_heads * cfg.hd * \
-        (tokens // seq) * seq * (seq + 1) // 2
-    ops = 6 * mat * tokens + att
-    b_ms, o_ms = moved / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
-    return dict(ms=max(b_ms, o_ms), bytes=moved, ops=ops, bytes_ms=b_ms,
-                ops_ms=o_ms, by="bytes" if b_ms >= o_ms else "operations",
-                params=n, matmul_params=mat)
-
-
-def train_full(seed: int, device, card: str) -> dict:
-    """Phase 13b: granite-8b at full width, TRAIN_LAYERS layers, bf16,
-    remat `dots`, the launcher's AdamW and cosine schedule, batches from
-    `StorePipeline` over a `RecordStore` on the card (the training
-    example's `build_store` at vocab 49152).  Each store lookup's tables,
-    overlay and keys are kept for the kernel comparison; the f64/i64
-    kernel's launches are counted by the caller over this function."""
-    import dataclasses
+def train_full(cfg, seed: int, device, card: str,
+               profile: bool = True) -> dict:
+    """Phase 13b: `cfg` (granite-8b at full width, TRAIN_LAYERS layers;
+    phase 14 the ssm and hybrid models), bf16, remat `dots`, the
+    launcher's AdamW and cosine schedule, batches from `StorePipeline`
+    over a `RecordStore` on the card (the training example's `build_store`
+    at the config's vocab).  Each store lookup's tables, overlay and keys
+    are kept for the kernel comparison; the f64/i64 kernel's launches are
+    counted by the caller over this function.  With `profile`, one more
+    step runs under torch.profiler."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import StorePipeline
     from repro_torch.train import optim as O
     from repro_torch.train import step as STEP
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
     t0 = time.perf_counter()
     store, keys = _example_module("train_lm_torch").build_store(
         cfg, device=device)
@@ -2525,7 +2523,9 @@ def train_full(seed: int, device, card: str) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     model = state["params"]
-    before = model.layers[0].attn.wq.detach().clone()
+    # the first layer's first weight matrix (granite's wq, a Mamba's w_in)
+    watched = next(p for p in model.layers[0].parameters() if p.dim() == 2)
+    before = watched.detach().clone()
     step_fn = STEP.make_train_step(cfg, O.Optimizer(opt.init, marked_update))
     rows = []
     for step in range(TRAIN_STEPS):
@@ -2546,9 +2546,9 @@ def train_full(seed: int, device, card: str) -> dict:
     if not all(np.isfinite(losses + norms)):
         raise AssertionError(f"non-finite loss or grad norm: {losses} "
                              f"{norms}")
-    if torch.equal(model.layers[0].attn.wq, before):
+    if torch.equal(watched, before):
         raise AssertionError("the weights did not change")
-    del before
+    del before, watched
     nxt = {}
 
     def profiled():
@@ -2556,9 +2556,10 @@ def train_full(seed: int, device, card: str) -> dict:
         nxt["state"], nxt["m"] = step_fn(
             state, {k: torch.from_numpy(v).to(device) for k, v in b.items()})
 
-    wall_us, by_name = device_events(profiled, reps=1)
+    wall_us, by_name = (device_events(profiled, reps=1) if profile
+                        else (0.0, {}))
     peak = torch.cuda.max_memory_allocated()
-    bd = train_bounds(model, cfg, TRAIN_BATCH * TRAIN_SEQ)
+    bd = train_bounds(model, cfg, TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ)
     # steps 2-6: the first one also loads the kernels and warms cuBLAS
     out = dict(init_s=init_s, store_s=store_s, peak=peak, losses=losses,
                norms=norms, step_ms=float(np.median(step_ms[1:])),
@@ -2569,8 +2570,8 @@ def train_full(seed: int, device, card: str) -> dict:
         busy = sum(us for us, _ in by_name.values())
         out.update(busy_ms=busy / 1e3, idle=1 - busy / wall_us,
                    kernels=sum(c for _, c in by_name.values()))
-    print(f"train on {card}: {cfg.name} at full width, {cfg.n_layers} of "
-          f"36 layers, {cfg.dtype}, remat {cfg.remat}, {bd['params']} "
+    print(f"train on {card}: {cfg.name} at full width, {cfg.n_layers} "
+          f"layers, {cfg.dtype}, remat {cfg.remat}, {bd['params']} "
           f"parameters ({bd['matmul_params']} in matmuls); batch "
           f"{TRAIN_BATCH} x {TRAIN_SEQ} from StorePipeline over a "
           f"{len(keys)}-document RecordStore (built in {store_s:.3f} s); "
@@ -2583,9 +2584,10 @@ def train_full(seed: int, device, card: str) -> dict:
           f"{[round(x, 3) for x in step_ms]}", flush=True)
     print(f"  bound {bd['ms']:.3f} ms by {bd['by']}: {bd['bytes']} B over "
           f"{HBM_BYTES_PER_S:.3g} B/s = {bd['bytes_ms']:.3f} ms, "
-          f"{bd['ops']} ops at {BF16_FLOPS:.3g}/s = {bd['ops_ms']:.3f} ms; "
-          f"the step takes {out['step_ms'] / bd['ms']:.2f}x the bound",
-          flush=True)
+          f"{bd['ops']} ops at {BF16_FLOPS:.3g}/s and "
+          f"{bd['elementwise_ops']} f32 element-wise ops at "
+          f"{F32_FLOPS:.3g}/s = {bd['ops_ms']:.3f} ms; the step takes "
+          f"{out['step_ms'] / bd['ms']:.2f}x the bound", flush=True)
     if by_name:
         print(f"  one step under torch.profiler: device busy "
               f"{out['busy_ms']:.3f} ms of {wall_us / 1e3:.3f} ms wall (idle "
@@ -2594,7 +2596,7 @@ def train_full(seed: int, device, card: str) -> dict:
         for name, (us, c) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:6]:
             print(f"    {us / 1e3:9.3f} ms  x{c}  {name[:80]}", flush=True)
-    else:
+    elif profile:
         print("  step breakdown: not measured (three profiler sessions saw "
               "no device events)", flush=True)
     store.index.close()
@@ -2691,16 +2693,20 @@ def train_resume(device) -> dict:
 def train_path(seed: int, device, card: str) -> dict:
     """Phase 13 (see the module docstring); the f64 kernel's launches are
     counted over the full-width training run alone (13b)."""
+    import dataclasses
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels.dili_search import (kernel, kernel_f32_i64,
                                                  kernel_f64)
     t13 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     print("train: the six reduced archs (f32, remat none), one step's "
           "gradients and 3 AdamW steps, card against CPU:", flush=True)
-    reduced = train_reduced_vs_cpu(seed, device)
+    reduced = train_reduced_vs_cpu(seed, device, reduced_archs())
     kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
-    full = train_full(seed, device, card)
+    full = train_full(dataclasses.replace(get_config(TRAIN_ARCH),
+                                          n_layers=TRAIN_LAYERS),
+                      seed, device, card)
     launches = kernel_f64.launches
     if launches == 0:
         raise AssertionError("the train path launched the f64 kernel no "
@@ -2708,16 +2714,7 @@ def train_path(seed: int, device, card: str) -> dict:
     print(f"train: f64 kernel launches {launches} over "
           f"{len(full['lookups'])} store lookups (f32: {kernel.launches}, "
           f"f32/i64: {kernel_f32_i64.launches})", flush=True)
-    print(f"f64 kernel vs plain on the record store "
-          f"({len(full['lookups'])} lookups):", flush=True)
-    max_err = 0.0
-    for i, (arrs, ov, lanes, picks) in enumerate(full.pop("lookups")):
-        q = torch.from_numpy(np.concatenate(
-            [picks, np.full(max(lanes - len(picks), 0), picks[0])])).to(
-                device)
-        max_err = max(max_err, kernel_vs_plain(
-            arrs, {f"lookup{i}_padded": q, f"lookup{i}": q[:len(picks)]},
-            "store", ov=ov))
+    max_err = store_lookups_vs_plain(full.pop("lookups"), device)
     accum = train_accum_property(seed, device)
     resume = train_resume(device)
     print(f"train: phase {time.perf_counter() - t13:.1f} s; reduced archs' "
@@ -2727,6 +2724,229 @@ def train_path(seed: int, device, card: str) -> dict:
           f"{accum[0]:.3e} / {accum[1]:.3e}; resume gaps "
           f"{resume['loss_gap']:.3e} / {resume['w_gap']:.3e}", flush=True)
     return dict(full, launches=launches, max_err=max_err)
+
+
+# Phase 14 builds the seed's two ssm/hybrid configs, which configs/ no
+# longer holds (configs/falcon_mamba_7b.py and configs/zamba2_1p2b.py of
+# the seed): no config there has either family.
+SSM_CONFIGS = {
+    # Mamba-1 [arXiv:2410.05355]
+    "falcon-mamba-7b": dict(
+        name="falcon-mamba-7b", family="ssm", n_layers=64, d_model=4096,
+        n_heads=0, n_kv_heads=0, d_ff=0, vocab=65024, ssm_state=16,
+        ssm_version=1, expand=2, d_conv=4, tie_embeddings=False),
+    # Mamba-2 backbone + a shared attention block every 6 [arXiv:2411.15242]
+    "zamba2-1.2b": dict(
+        name="zamba2-1.2b", family="hybrid", n_layers=38, d_model=2048,
+        n_heads=32, n_kv_heads=32, d_ff=8192, vocab=32000, ssm_state=64,
+        ssm_version=2, ssm_heads=32, expand=2, d_conv=4,
+        shared_attn_every=6, act="gelu"),
+}
+# trained at full width: falcon-mamba cut to 8 of its 64 layers (AdamW's
+# 16 B a parameter: the whole needs ~116 GB), zamba2 whole
+SSM_TRAIN_LAYERS = {"falcon-mamba-7b": 8, "zamba2-1.2b": 38}
+# the decode property at full width in f32: zamba2's 12 layers hold two
+# shared sites, both used (i % 6 == 5 at 5 and 11)
+SSM_PROPERTY_LAYERS = {"falcon-mamba-7b": 2, "zamba2-1.2b": 12}
+SSM_SERVE_STEPS = 8              # greedy decode steps after the prefill
+PIPE_LAYERS = PIPE_STAGES = PIPE_MICRO = 4
+PIPE_RTOL = 1e-5                 # pipeline against forward_train, f32
+
+
+def ssm_serve(cfg, seed: int, device, card: str) -> dict:
+    """Phase 14a: `cfg` uncut at its dtype, weights drawn on the card,
+    prefill of [8, 32] and SSM_SERVE_STEPS greedy decode steps through
+    `train/step.py` (finite logits, tokens in range), then `llm_numbers`:
+    prefill and decode ms on CUDA events beside their bounds, kernels a
+    decode step and the idle share."""
+    import torch
+    from repro_torch.models import model as MDL
+    from repro_torch.train import step as STEP
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = MDL.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed), device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    B, P = 8, 32
+    tokens, _ = llm_inputs(cfg, B, P, seed, device)
+    cache = MDL.make_cache(cfg, B, P + SSM_SERVE_STEPS + 1, device=device)
+    t0 = time.perf_counter()
+    toks, logits = STEP.greedy(model, cfg, dict(tokens=tokens), cache,
+                               SSM_SERVE_STEPS)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    if not all(bool(torch.isfinite(lg).all()) for lg in logits):
+        raise AssertionError(f"{cfg.name}: the served logits are not all "
+                             f"finite")
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"{cfg.name}: served tokens outside "
+                             f"[0, {cfg.vocab})")
+    print(f"ssm serve on {card}: {cfg.name} uncut ({cfg.family}, "
+          f"{cfg.n_layers} layers, {cfg.dtype}), {n} parameters drawn on "
+          f"the card in {init_s:.3f} s; prefill of [{B}, {P}] and "
+          f"{SSM_SERVE_STEPS} greedy decode steps in {serve_s:.3f} s, logits "
+          f"finite, tokens in range (row 0: {toks[0].tolist()})", flush=True)
+    del cache
+    # one decode step under the profiler, to keep phase 14 within what the
+    # sharded path's cut saves
+    out = llm_numbers(dict(model=model, cfg=cfg), seed, device, card,
+                      profiled=(0, 1))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {cfg.name}: peak allocated {peak} B over serving and timing",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return dict(out, init_s=init_s, params=n, peak=peak)
+
+
+def pipeline_on_card(seed: int, device) -> dict:
+    """Phase 14e: the GPipe schedule at granite-8b's width, PIPE_LAYERS
+    layers in f32 (TF32 off) split into PIPE_STAGES stages with
+    PIPE_MICRO microbatches of [8, 64] tokens, against `forward_train`
+    within PIPE_RTOL; both timed on CUDA events."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MDL
+    from repro_torch.parallel import pipeline as PP
+    from repro_torch.parallel.sharding import Mesh
+    cfg = dataclasses.replace(get_config(LLM_ARCH), n_layers=PIPE_LAYERS,
+                              dtype="float32", remat="none")
+    model = MDL.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed), device=device)
+    tokens, _ = llm_inputs(cfg, 8, 64, seed, device)
+    mesh = Mesh(("pod", "data", "model"), (PIPE_STAGES, 1, 1))
+    with torch.no_grad():
+        full, _ = MDL.forward_train(model, cfg, tokens)
+        pp = PP.pipeline_forward(cfg, mesh, model, tokens, n_micro=PIPE_MICRO)
+        rel = _rel_gap(pp, full)
+        pp_ms = cuda_ms(lambda: PP.pipeline_forward(
+            cfg, mesh, model, tokens, n_micro=PIPE_MICRO), 3)
+        fw_ms = cuda_ms(lambda: MDL.forward_train(model, cfg, tokens), 3)
+    print(f"  pipeline: {cfg.name} width, {PIPE_LAYERS} layers in "
+          f"{PIPE_STAGES} stages, {PIPE_MICRO} microbatches of [2, 64], f32: "
+          f"logits against forward_train relative gap {rel:.3e} (limit "
+          f"{PIPE_RTOL}); {pp_ms:.3f} ms against {fw_ms:.3f} ms on CUDA "
+          f"events", flush=True)
+    if not rel <= PIPE_RTOL:
+        raise AssertionError(f"pipeline_forward differs from forward_train "
+                             f"by {rel} relative")
+    del model, full, pp
+    torch.cuda.empty_cache()
+    return dict(rel=rel, ms=pp_ms, forward_ms=fw_ms)
+
+
+def psum_on_card(seed: int, device) -> None:
+    """Phase 14f: `psum_int8` over 8 stacked shard slices on the card
+    against its CPU result, bit for bit: the reference test's (64, 32)
+    input as 8 x (8, 32), and 8 x (1024, 4096)."""
+    import torch
+    from repro_torch.parallel.compression import psum_int8
+    rng = np.random.default_rng(seed)
+    for shape in ((8, 8, 32), (8, 1024, 4096)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        want = psum_int8(x)
+        xd = x.to(device)
+        got = psum_int8(xd).cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"psum_int8 on the card differs from the "
+                                 f"CPU's at {shape}: "
+                                 f"{float((got - want).abs().max())}")
+        ms = cuda_ms(lambda: psum_int8(xd), 5)
+        print(f"  psum_int8 over {shape[0]} shards of {shape[1:]}: bit-equal "
+              f"to the CPU's; {ms:.4f} ms on CUDA events", flush=True)
+
+
+def dryrun_table(cfgs: dict) -> list:
+    """Phase 14g: `launch.dryrun` over every (arch x shape) cell, the six
+    assigned archs and `cfgs`, single and multi-pod, against the card's
+    memory; one line a cell."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.launch import dryrun as DRY
+    from repro_torch.models.config import ALL_SHAPES
+    hbm = DRY.card_bytes(None)
+    archs = dict({a: get_config(a) for a in list_archs()}, **cfgs)
+    print(f"  dry run against the card's {hbm} B:", flush=True)
+    rows = []
+    for multi in (False, True):
+        for name, cfg in archs.items():
+            for shape in ALL_SHAPES:
+                rows.append(DRY.run_cell(cfg, shape, multi, hbm, arch=name))
+                print(f"    {DRY.format_row(rows[-1])}", flush=True)
+    ok = [r for r in rows if r["status"] == "OK"]
+    print(f"  dry run: {len(rows)} cells, {len(ok)} sized, "
+          f"{len(rows) - len(ok)} skipped; {sum(r['fits'] for r in ok)} "
+          f"fit the card whole", flush=True)
+    return rows
+
+
+def ssm_path(seed: int, device, card: str) -> dict:
+    """Phase 14 (see the module docstring); the f64 kernel's launches are
+    counted over the two full-width training runs (14c)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.dili_search import (kernel, kernel_f32_i64,
+                                                 kernel_f64)
+    from repro_torch.models.config import ModelConfig
+    t14 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfgs = {k: ModelConfig(**v) for k, v in SSM_CONFIGS.items()}
+    reduced = {"falcon-mamba-7b": cfgs["falcon-mamba-7b"].reduced(),
+               "zamba2-1.2b": cfgs["zamba2-1.2b"].reduced(
+                   n_layers=5, shared_attn_every=2)}
+    print("ssm: the reduced ssm and hybrid archs (f32), prefill and "
+          f"{LLM_STEPS} greedy decode steps, then one step's gradients and 3 "
+          f"AdamW steps (remat none), card against CPU:", flush=True)
+    marks = [("start", time.perf_counter())]
+    llm_err = llm_reduced_vs_cpu(seed, device, reduced)
+    tr_err = train_reduced_vs_cpu(seed, device, reduced)
+    marks.append(("reduced", time.perf_counter()))
+    serve = {}
+    for name, cfg in cfgs.items():
+        serve[name] = ssm_serve(cfg, seed, device, card)
+        marks.append((f"serve {name}", time.perf_counter()))
+    rel = {name: llm_decode_property(dataclasses.replace(
+        cfg, n_layers=SSM_PROPERTY_LAYERS[name], dtype="float32"), seed,
+        device) for name, cfg in cfgs.items()}
+    marks.append(("decode property", time.perf_counter()))
+    kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
+    trains = {}
+    for name, cfg in cfgs.items():
+        trains[name] = train_full(dataclasses.replace(
+            cfg, n_layers=SSM_TRAIN_LAYERS[name]), seed, device, card,
+            profile=False)
+        marks.append((f"train {name}", time.perf_counter()))
+    launches = kernel_f64.launches
+    if launches == 0:
+        raise AssertionError("the ssm train path launched the f64 kernel no "
+                             "time")
+    print(f"ssm: f64 kernel launches {launches} over the two training runs' "
+          f"store lookups (f32: {kernel.launches}, f32/i64: "
+          f"{kernel_f32_i64.launches})", flush=True)
+    max_err = store_lookups_vs_plain(
+        [lk for t in trains.values() for lk in t.pop("lookups")], device)
+    print("ssm: parallel and launch on the card:", flush=True)
+    pipe = pipeline_on_card(seed, device)
+    marks.append(("pipeline", time.perf_counter()))
+    psum_on_card(seed, device)
+    marks.append(("psum", time.perf_counter()))
+    dryrun_table(cfgs)
+    marks.append(("dry run", time.perf_counter()))
+    seconds = time.perf_counter() - t14
+    parts = {b[0]: round(b[1] - a[1], 1) for a, b in zip(marks, marks[1:])}
+    print(f"ssm: seconds by part {parts}", flush=True)
+    print(f"ssm: phase {seconds:.1f} s; reduced archs' largest logit gap "
+          f"{llm_err:.3e}, gradient {tr_err['grad']:.3e}, 3-step losses "
+          f"{tr_err['steps']:.3e}; decode against the full forward "
+          f"{ {k: f'{v:.3e}' for k, v in rel.items()} }; pipeline gap "
+          f"{pipe['rel']:.3e}; train ms a step "
+          f"{ {k: round(t['step_ms'], 3) for k, t in trains.items()} }",
+          flush=True)
+    return dict(serve=serve, train=trains, launches=launches,
+                max_err=max_err, seconds=seconds)
 
 
 def make_overlay(keys: np.ndarray, rng, device, n_up: int = 1000,
@@ -3078,7 +3298,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.dili import bulk_load
     from repro_torch.core.flat import flatten
     from repro_torch.core import search as S
@@ -3288,11 +3507,10 @@ def main() -> int:
           f"{info['upload_s']:.3f} s, flush {info['flush_s']:.3f} s; merges "
           f"{info['merge_reasons']}; facade lookup ms per batch in the main "
           f"path {[round(x, 3) for x in info['lookup_ms']]}", flush=True)
-    # kept for the sharded path's device-time comparison
-    local_timing = (arrs, ov, q)
     # kept for the competitors' DILI row: the bulk load's keys and flat
     local_bulk = (info["keys"], info["flat"],
                   info["build_s"] + info["flatten_s"])
+    local_build_s = info["build_s"] + info["flatten_s"] + info["upload_s"]
 
     # -- 4c. the serving front-end over the local index, counted --------------
     kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
@@ -3415,7 +3633,8 @@ def main() -> int:
     # -- 8. durability: kill and recover on the local engine, counted ---------
     kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
     t0 = time.perf_counter()
-    durable_path(min(args.keys, DURABLE_KEYS), args.seed, dev)
+    durable_timing = durable_path(min(args.keys, DURABLE_KEYS), args.seed,
+                                  dev)
     durable_s = time.perf_counter() - t0
     launches_dur = kernel_f64.launches
     if launches_dur == 0:
@@ -3428,7 +3647,10 @@ def main() -> int:
 
     # -- 9. the sharded engine, counted --------------------------------------
     kernel.launches = kernel_f64.launches = kernel_f32_i64.launches = 0
-    sharded = sharded_path(args.keys, args.seed, dev, local_timing)
+    t0 = time.perf_counter()
+    sharded = sharded_path(min(args.keys, SHARDED_KEYS), args.seed, dev,
+                           durable_timing)
+    sharded_s = time.perf_counter() - t0
     launches_sharded = sharded["launches"]
     if launches_sharded == 0:
         raise AssertionError("the sharded path launched the f64 kernel no "
@@ -3439,7 +3661,15 @@ def main() -> int:
           flush=True)
     entry64["launches"] += launches_sharded
     entry64["max_abs_err"] = max(entry64["max_abs_err"], sharded["max_err"])
-    del local_timing
+    # the cut's saving: the local path's 1M host build of the same
+    # distribution in this run stands for the sharded path's old 1M build
+    sharded_saved_s = local_build_s - sharded["build_s"]
+    print(f"sharded: the path took {sharded_s:.1f} s at "
+          f"{min(args.keys, SHARDED_KEYS)} keys (build "
+          f"{sharded['build_s']:.1f} s); the local path's build of "
+          f"{args.keys} keys took {local_build_s:.1f} s in this run, so the "
+          f"cut saved about {sharded_saved_s:.1f} s", flush=True)
+    del durable_timing
     torch.cuda.empty_cache()
 
     # -- 10. serving: background against sync maintenance, counted ----------
@@ -3482,6 +3712,13 @@ def main() -> int:
     train = train_path(args.seed, dev, card)
     entry64["launches"] += train["launches"]
     entry64["max_abs_err"] = max(entry64["max_abs_err"], train["max_err"])
+
+    # -- 14. ssm / hybrid / parallel: the last slice on the card, counted ---
+    ssm = ssm_path(args.seed, dev, card)
+    entry64["launches"] += ssm["launches"]
+    entry64["max_abs_err"] = max(entry64["max_abs_err"], ssm["max_err"])
+    print(f"ssm: phase 14 took {ssm['seconds']:.1f} s; the sharded cut "
+          f"saved about {sharded_saved_s:.1f} s", flush=True)
     print(f"summary: serve on the local 1M index: the ramp's best "
           f"achieved rate {serve['ramp_best']:.1f} ops/s, the highest "
           f"offered rate a leg held {serve['sustained']:.1f} ops/s; sharded "
@@ -3494,8 +3731,11 @@ def main() -> int:
           f"{LLM_ARCH} decode {llm['decode_ms']:.3f} ms a step against a "
           f"{llm['bounds']['decode']['ms']:.3f} ms bound; {TRAIN_ARCH} at "
           f"{TRAIN_LAYERS} layers trains {train['step_ms']:.3f} ms a step "
-          f"against a {train['bounds']['ms']:.3f} ms bound; the whole script "
-          f"{time.perf_counter() - T_START:.1f} s",
+          f"against a {train['bounds']['ms']:.3f} ms bound; "
+          + "; ".join(f"{k} decode {v['decode_ms']:.3f} ms a step against a "
+                      f"{v['bounds']['decode']['ms']:.3f} ms bound"
+                      for k, v in ssm["serve"].items())
+          + f"; the whole script {time.perf_counter() - T_START:.1f} s",
           flush=True)
 
     print(card, flush=True)

@@ -9,9 +9,15 @@ Fault tolerance: every --ckpt-every steps the state is written atomically
 through `ft` in the reference's layout (`train.step.save_state`); on
 restart the newest valid checkpoint is restored (corrupt ones are skipped,
 and so is every checkpoint of a bf16 model, as in the reference).  A
-per-step deadline flags stragglers (logs and continues).  `--mesh local`
-is the one card; the production meshes (`16x16`, `2x16x16`) need the
-parallel slice (ROADMAP item 11c).
+per-step deadline flags stragglers (logs and continues).
+
+`--mesh local` is the one card, a (1, 1) mesh; the state's shardings come
+from the reference's rules on that mesh (`parallel.sharding`), where every
+placement is the identity.  A production mesh (`16x16`, `2x16x16`) needs
+256 or 512 devices: the launcher raises `ValueError` naming them and the
+one device present, before any state is built, as the reference's
+`jax.make_mesh` fails on a host with one device.  Size those meshes'
+cells with the dry run (`python -m repro_torch.launch.dryrun`).
 
 `main` returns the per-step losses (floats, from the first step this run
 took), the step it started at and the final state.
@@ -30,8 +36,10 @@ import torch
 from ..configs import get_config
 from ..data.pipeline import SyntheticLM
 from ..device import resolve_device
+from ..parallel import sharding as SH
 from ..train import step as STEP
 from ..train.optim import adafactor, adamw, cosine_schedule
+from .mesh import check_devices, make_local_mesh, make_production_mesh
 
 
 def main(argv=None) -> dict:
@@ -59,16 +67,19 @@ def main(argv=None) -> dict:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, accum_steps=1)
 
-    if args.mesh != "local":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the production meshes need the parallel "
-            f"slice (ROADMAP item 11c); on one card use --mesh local")
+    if args.mesh == "local":
+        mesh = make_local_mesh()
+    else:
+        mesh = make_production_mesh(multi_pod=args.mesh.count("x") == 2)
+    check_devices(mesh, dev)
 
     opt = (adafactor(lr=args.lr) if cfg.d_model >= 5120
            else adamw(lr=args.lr,
                       schedule=cosine_schedule(args.lr, 20, args.steps)))
 
     pipe = SyntheticLM(cfg.vocab, args.seq, args.batch, seed=0)
+    shardings = dict(
+        params=SH.param_shardings(cfg, mesh, STEP.params_shape(cfg)))
     state = STEP.init_state(cfg, opt, device=dev)
     manifest = STEP.restore_state(args.ckpt_dir, state)
     if manifest is None:
@@ -97,7 +108,7 @@ def main(argv=None) -> dict:
             STEP.save_state(args.ckpt_dir, step + 1, state)
     print("[launch] done")
     return dict(losses=[float(x) for x in losses], start=start, state=state,
-                cfg=cfg)
+                cfg=cfg, mesh=mesh, shardings=shardings)
 
 
 if __name__ == "__main__":

@@ -7,10 +7,11 @@ Families:
   dense+gemma2 — alternating local/global attention, attn & logit softcaps,
                  post-norms
   moe          — router + sort-based capacity dispatch (granite-moe, grok)
+  ssm          — mamba-1 stack (falcon-mamba)
+  hybrid       — mamba-2 stack + ONE shared attention block applied every k
+                 blocks (zamba2)
   audio        — whisper-style encoder-decoder (frontend stubbed)
   vlm          — dense backbone consuming precomputed patch embeds + tokens
-The `ssm` and `hybrid` families need the mamba blocks, which come with the
-next slice (ROADMAP item 11c); here they raise `NotImplementedError`.
 
 The weights are one `LM` module whose layers are an `nn.ModuleList` of
 per-layer modules (the reference stacks them under a scan).  Entry points
@@ -41,16 +42,11 @@ from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
 from . import layers as L
+from . import mamba as M
 from . import moe as X
 from .config import ModelConfig, torch_dtype
 
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family needs models/mamba.py, "
-            f"which the port takes with the slice after the training path "
-            f"(ROADMAP item 11c)")
+SSM_FAMILIES = ("ssm", "hybrid")
 
 
 # ---------------------------------------------------------------------------
@@ -76,7 +72,19 @@ class Block(nn.Module):
             self.mlp = L.MLP(cfg, init)
 
 
+class SSMBlock(nn.Module):
+    """One layer of the ssm (Mamba-1) and hybrid (Mamba-2) families."""
+
+    def __init__(self, cfg: ModelConfig, init: L.Init):
+        super().__init__()
+        self.norm = init.zeros((cfg.d_model,))
+        self.mamba = (M.Mamba if cfg.family == "ssm" else M.Mamba2)(cfg, init)
+
+
 class EncoderBlock(nn.Module):
+    """A whisper encoder layer; also zamba2's one shared attention block
+    (`LM.shared_attn`)."""
+
     def __init__(self, cfg: ModelConfig, init: L.Init):
         super().__init__()
         self.norm1 = init.zeros((cfg.d_model,))
@@ -97,11 +105,13 @@ class CrossBlock(nn.Module):
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, init: L.Init):
         super().__init__()
-        _check_family(cfg)
         self.embed = L.Embedding(cfg, init)
-        self.layers = nn.ModuleList(Block(cfg, init)
+        block = SSMBlock if cfg.family in SSM_FAMILIES else Block
+        self.layers = nn.ModuleList(block(cfg, init)
                                     for _ in range(cfg.n_layers))
         self.final_norm = init.zeros((cfg.d_model,))
+        if cfg.family == "hybrid" and cfg.shared_attn_every:
+            self.shared_attn = EncoderBlock(cfg, init)
         if cfg.is_encdec:
             self.encoder = nn.ModuleList(EncoderBlock(cfg, init)
                                          for _ in range(cfg.encoder_layers))
@@ -132,10 +142,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 _STACKED = ("layers", "encoder", "cross")
 
 
-def _leaves(tree, prefix=()):
+def leaves_with_path(tree, prefix=()):
+    """(path of keys, leaf) of each leaf of a nested dict, in its order."""
     for k, v in tree.items():
         if isinstance(v, dict):
-            yield from _leaves(v, prefix + (k,))
+            yield from leaves_with_path(v, prefix + (k,))
         else:
             yield prefix + (k,), v
 
@@ -166,7 +177,7 @@ def params_from_reference(cfg: ModelConfig, tree, device="cuda") -> LM:
         unset.discard(name)
 
     with torch.no_grad():
-        for path, a in _leaves(tree):
+        for path, a in leaves_with_path(tree):
             if path[0] in _STACKED:
                 for i in range(np.shape(a)[0]):
                     put(".".join((path[0], str(i)) + path[1:]), a[i])
@@ -294,13 +305,54 @@ def _decoder_layer(pl_: Block, pc, cfg, i, x, positions, rot, enc, h=None):
     return _after_attn(pl_, cfg, x, a, pc, enc)
 
 
+def _is_shared_site(cfg, i) -> bool:
+    """Whether zamba2's shared attention block runs after layer `i`."""
+    k = cfg.shared_attn_every
+    return bool(k) and i % k == k - 1
+
+
+def _ssm_layer(pl_: SSMBlock, shared, cfg, i, x, positions, rot, fill):
+    """One ssm/hybrid layer and, at a shared site, the shared attention
+    block: (x, its (conv, ssm) state, the shared block's rotated (k, v)
+    when `fill` and the block ran)."""
+    blk = M.mamba_block if cfg.family == "ssm" else M.mamba2_block
+    h = L.rms_norm(x, pl_.norm, cfg.norm_eps)
+    y, st = blk(pl_.mamba, cfg, h)
+    x = x + y
+    kv = None
+    if shared is not None and _is_shared_site(cfg, i):
+        h = L.rms_norm(x, shared.norm1, cfg.norm_eps)
+        if fill:
+            kv = L.project_kv(shared.attn, cfg, h, positions, rot)
+        x = x + L.attention(shared.attn, cfg, h, positions, causal=True,
+                            rot=rot)
+        h = L.rms_norm(x, shared.norm2, cfg.norm_eps)
+        x = x + L.mlp(shared.mlp, cfg, h)
+    return x, st, kv
+
+
 def _run_decoder(params: LM, cfg: ModelConfig, x, positions, *,
                  make_cache_out=False, enc_out=None, enc_positions=None):
-    """Over the layers in order.  Returns (x, aux_loss, cache_kv or None).
+    """Over the layers in order.  Returns (x, aux_loss, cache or None).
 
-    cache_kv (when make_cache_out): per-layer rotated (k, v)."""
+    cache (when make_cache_out): per-layer rotated (k, v); for the ssm and
+    hybrid families (per-layer (conv, ssm) states, per-site shared (k, v))."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = [] if make_cache_out else None
+    if cfg.family in SSM_FAMILIES:
+        shared = getattr(params, "shared_attn", None)
+        rot = (L.rope_rotation(positions, cfg.hd, cfg.rope_theta)
+               if shared is not None else None)
+        layer = _remat(_ssm_layer, cfg)
+        sites = []
+        for i, pl_ in enumerate(params.layers):
+            x, st, kv = layer(pl_, shared, cfg, i, x, positions, rot,
+                              make_cache_out)
+            if make_cache_out:
+                cache.append(st)
+                if kv is not None:
+                    sites.append(kv)
+        return x, aux, (cache, sites) if make_cache_out else None
     enc = (enc_out, enc_positions, positions)
     rot = L.rope_rotation(positions, cfg.hd, cfg.rope_theta)
     layer = _remat(_decoder_layer, cfg)
@@ -393,14 +445,39 @@ def loss_fn(params: LM, cfg, tokens, labels, extra_embeds=None,
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda") -> dict:
-    """Per-layer K/V buffers [L, B, max_len, Hkv, hd] and the next position
-    (a host int).  `prefill` and `decode_step` write into the buffers."""
-    _check_family(cfg)
+    """The serving state and the next position (a host int), which
+    `prefill` and `decode_step` write in place: per-layer K/V buffers
+    [L, B, max_len, Hkv, hd]; for ssm, per-layer conv and ssm states; for
+    hybrid, also the shared block's K/V at each of its sites."""
     dev = resolve_device(device)
     dt = dtype or torch_dtype(cfg.dtype)
+
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    f32 = torch.float32
+    if cfg.family == "ssm":
+        di = cfg.d_inner
+        return dict(conv=zeros((cfg.n_layers, batch, cfg.d_conv - 1, di)),
+                    ssm=zeros((cfg.n_layers, batch, di, cfg.ssm_state), f32),
+                    pos=0)
+    if cfg.family == "hybrid":
+        di = cfg.d_inner
+        nh = M.n_ssm_heads(cfg)
+        k = cfg.shared_attn_every
+        n_sites = (cfg.n_layers + k - 1) // k if k else 0
+        c = dict(conv=zeros((cfg.n_layers, batch, cfg.d_conv - 1,
+                             di + 2 * cfg.ssm_state)),
+                 ssm=zeros((cfg.n_layers, batch, nh, di // nh,
+                            cfg.ssm_state), f32),
+                 pos=0)
+        if n_sites:
+            shape = (n_sites, batch, max_len, cfg.n_kv_heads, cfg.hd)
+            c["shared_k"] = zeros(shape)
+            c["shared_v"] = zeros(shape)
+        return c
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return dict(k=torch.zeros(shape, dtype=dt, device=dev),
-                v=torch.zeros(shape, dtype=dt, device=dev), pos=0)
+    return dict(k=zeros(shape), v=zeros(shape), pos=0)
 
 
 @torch.no_grad()
@@ -414,9 +491,19 @@ def prefill(params: LM, cfg: ModelConfig, tokens, cache, extra_embeds=None,
                             enc_out=enc_out, enc_positions=enc_positions)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = L.lm_logits(params.embed, cfg, x[:, -1:])
-    for i, (k, v) in enumerate(kv):
-        cache["k"][i, :, :s_eff] = k
-        cache["v"][i, :, :s_eff] = v
+    if cfg.family in SSM_FAMILIES:
+        states, sites = kv
+        for i, (conv, ssm) in enumerate(states):
+            cache["conv"][i] = conv
+            cache["ssm"][i] = ssm
+        # prefill writes the leading s_eff positions of the site caches
+        for site, (k, v) in enumerate(sites):
+            cache["shared_k"][site, :, :s_eff] = k
+            cache["shared_v"][site, :, :s_eff] = v
+    else:
+        for i, (k, v) in enumerate(kv):
+            cache["k"][i, :, :s_eff] = k
+            cache["v"][i, :, :s_eff] = v
     cache = dict(cache, pos=s_eff)
     if enc_out is not None:
         cache["enc_out"] = enc_out
@@ -430,6 +517,10 @@ def decode_step(params: LM, cfg: ModelConfig, token, cache):
     x = L.embed(params.embed, cfg, token)
     pos = cache["pos"]
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    if cfg.family in SSM_FAMILIES:
+        x = _decode_ssm(params, cfg, x, positions, cache)
+        x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
+        return L.lm_logits(params.embed, cfg, x), dict(cache, pos=pos + 1)
     t = cache["k"].shape[2]
     ar = torch.arange(t, device=x.device)
     kv_pos = torch.where(ar <= pos, ar, -1).expand(b, t)
@@ -458,3 +549,37 @@ def decode_step(params: LM, cfg: ModelConfig, token, cache):
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
     logits = L.lm_logits(params.embed, cfg, x)
     return logits, dict(cache, pos=pos + 1)
+
+
+def _decode_ssm(params: LM, cfg: ModelConfig, x, positions, cache):
+    """The ssm/hybrid layers on one token: each layer's conv and ssm state
+    updated in place, and at each shared site the shared block's K/V
+    written at `pos` and attended over the positions up to it."""
+    blk = M.mamba_block if cfg.family == "ssm" else M.mamba2_block
+    shared = getattr(params, "shared_attn", None)
+    pos = cache["pos"]
+    if shared is not None:
+        b, t = x.shape[0], cache["shared_k"].shape[2]
+        ar = torch.arange(t, device=x.device)
+        kv_pos = torch.where(ar <= pos, ar, -1).expand(b, t)
+        rot = L.rope_rotation(positions, cfg.hd, cfg.rope_theta)
+        mask = L._mask(positions, kv_pos, True, 0)
+    for i, pl_ in enumerate(params.layers):
+        h = L.rms_norm(x, pl_.norm, cfg.norm_eps)
+        y, (conv, ssm) = blk(pl_.mamba, cfg, h,
+                             (cache["conv"][i], cache["ssm"][i]))
+        cache["conv"][i] = conv
+        cache["ssm"][i] = ssm
+        x = x + y
+        if shared is not None and _is_shared_site(cfg, i):
+            site = i // cfg.shared_attn_every
+            h = L.rms_norm(x, shared.norm1, cfg.norm_eps)
+            kk, vv = L.project_kv(shared.attn, cfg, h, positions, rot)
+            sk, sv = cache["shared_k"][site], cache["shared_v"][site]
+            sk[:, pos] = kk[:, 0]
+            sv[:, pos] = vv[:, 0]
+            x = x + L.attention(shared.attn, cfg, h, positions, kv=(sk, sv),
+                                kv_positions=kv_pos, rot=rot, mask=mask)
+            h = L.rms_norm(x, shared.norm2, cfg.norm_eps)
+            x = x + L.mlp(shared.mlp, cfg, h)
+    return x

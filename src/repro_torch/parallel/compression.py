@@ -1,13 +1,18 @@
-"""Gradient compression: int8 quantization with error feedback.  Port of
-`repro/parallel/compression.py`.
+"""Gradient compression: int8 quantized all-reduce with error feedback.
+Port of `repro/parallel/compression.py`.
 
+`psum_int8` is the compressed all-reduce: each shard's tensor is quantized
+to int8 with one scale (the largest of the shards' per-tensor scales, so
+every participant dequantizes alike), the int8 payloads are summed as
+int32 (no overflow at 512 participants), and the sum is dequantized.  The
+reference runs it inside `shard_map` over a mesh axis; on the one card the
+shards' slices are stacked on a leading axis, the axis's `pmax` and `psum`
+become a max and a sum over it, and every shard's result is returned, as
+`core/distributed.py` emulates the sharded engine's collectives.
 `ErrorFeedback` carries the quantization residual into the next step
 (Karimireddy et al. 2019) so convergence is preserved: `ef_compress`
 quantizes each gradient leaf (plus its residual) to int8 with a per-tensor
-scale and returns what dequantizes back, and the new residual.  The
-reference's `psum_int8`, the compressed all-reduce inside `shard_map`,
-waits for the parallel slice (ROADMAP item 11c): on one card there is no
-data-parallel reduction to compress.
+scale and returns what dequantizes back, and the new residual.
 
 Trees are the optimizer's (`train.optim`): nested dicts whose leaves are
 tensors or stacks (lists of per-layer tensors).
@@ -28,6 +33,19 @@ def quantize_int8(x):
 
 def dequantize_int8(q, scale):
     return q.to(torch.float32) * scale
+
+
+def psum_int8(x):
+    """Compressed psum of per-shard float tensors stacked as x [n, ...]:
+    the reference's formula (per-shard scale, its max across shards,
+    round half to even, clip to +-127, int8, int32 sum, times the scale).
+    Returns every shard's result, [n, ...] (all equal), in f32."""
+    per_shard = torch.abs(x).reshape(x.shape[0], -1).amax(dim=1)
+    scale = torch.clamp(per_shard, min=1e-12) / 127.0
+    scale = torch.amax(scale)                               # pmax
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    s = torch.sum(q.to(torch.int32), dim=0, dtype=torch.int32)   # psum
+    return (s.to(torch.float32) * scale).expand_as(x)
 
 
 def ef_compress(grads, residual):

@@ -38,6 +38,12 @@ def state_shape(cfg: ModelConfig, opt: Optimizer) -> dict:
     return _template(state_tree(_state(model, opt)))
 
 
+def params_shape(cfg: ModelConfig) -> dict:
+    """The parameters in the reference's tree, as stacked `meta`
+    tensors."""
+    return _template(MDL.param_tree(MDL.LM(cfg, L.Init(torch.device("meta")))))
+
+
 def _state(model: MDL.LM, opt: Optimizer) -> dict:
     return dict(params=model, opt=opt.init(MDL.param_tree(model)),
                 step=torch.zeros((), dtype=torch.int32,

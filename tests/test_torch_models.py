@@ -92,16 +92,26 @@ def test_config_equals_reference(arch):
 
 
 def test_torch_dtype_and_unported_families():
+    """The dtype map, and the ssm and hybrid families (no config in
+    `configs/` has them) building with their caches on the CPU."""
     assert torch_dtype("bfloat16") is torch.bfloat16
     assert torch_dtype("float32") is torch.float32
     with pytest.raises(ValueError):
         torch_dtype("float16")
-    ssm = dataclasses.replace(get_config("granite_8b").reduced(),
-                              family="ssm")
-    for call in (lambda: MDL.init_params(ssm, device=CPU),
-                 lambda: MDL.make_cache(ssm, 1, 4, device=CPU)):
-        with pytest.raises(NotImplementedError, match="11c"):
-            call()
+    base = get_config("granite_8b").reduced()
+    for family, kw in (("ssm", dict(ssm_state=8)),
+                       ("hybrid", dict(ssm_state=8, ssm_heads=4,
+                                       shared_attn_every=2, n_layers=3))):
+        cfg = dataclasses.replace(base, family=family, **kw)
+        model = MDL.init_params(cfg, device=CPU)
+        assert len(model.layers) == cfg.n_layers
+        assert hasattr(model, "shared_attn") == (family == "hybrid")
+        cache = MDL.make_cache(cfg, 1, 4, device=CPU)
+        assert cache["pos"] == 0 and cache["ssm"].dtype == torch.float32
+        assert cache["conv"].shape[:3] == (cfg.n_layers, 1, cfg.d_conv - 1)
+        if family == "hybrid":   # ceil(3 / 2) sites
+            assert cache["shared_k"].shape == (2, 1, 4, cfg.n_kv_heads,
+                                               cfg.hd)
 
 
 def test_params_from_reference_checks_the_tree():

@@ -729,8 +729,11 @@ def test_launcher_resumes_where_it_stopped(tmp_path, capsys):
 
 
 def test_launcher_rejects_production_meshes_and_missing_card():
-    with pytest.raises(NotImplementedError, match="11c"):
-        LAUNCH.main(["--reduced", "--mesh", "16x16", "--device", "cpu"])
+    """A production mesh needs 256 or 512 devices: refused by name before
+    any state is built, as `jax.make_mesh` refuses it on one device."""
+    for mesh, n in (("16x16", 256), ("2x16x16", 512)):
+        with pytest.raises(ValueError, match=f"needs {n} devices"):
+            LAUNCH.main(["--reduced", "--mesh", mesh, "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             LAUNCH.main(["--reduced", "--steps", "1"])
