@@ -135,6 +135,10 @@ class LearnedIndex:
     def lookup(self, queries) -> tuple[np.ndarray, np.ndarray]:
         """Batched point lookups -> (vals int64, found bool); vals only
         valid where found."""
+        tel = self._engine.telemetry
+        on = tel.enabled
+        if on:
+            tc = time.perf_counter()
         q = np.atleast_1d(np.asarray(queries, np.float64))
         if not np.isfinite(q).all():
             raise ValueError("queries must be finite")
@@ -142,9 +146,9 @@ class LearnedIndex:
         lanes = self._pad_batch(n)
         if lanes > n:
             q = np.concatenate([q, np.full(lanes - n, q[0])])
-        tel = self._engine.telemetry
-        if tel.enabled:
+        if on:
             t0 = time.perf_counter()
+            tel.spans.stage("lookup.check", tc, t0)
             v, f = self._engine.lookup(q)
             self._record("lookup", tel, t0, n)
         else:

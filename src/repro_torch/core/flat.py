@@ -34,6 +34,7 @@ its tests; it is NOT what serving uses.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -177,12 +178,22 @@ def node_tables(nodes: list, ids: dict[int, int]):
     return a, b, base, fo, dense, tag_all, key_all, val_all
 
 
-def flatten(dili: DILI) -> FlatDILI:
+def flatten(dili: DILI, stage=None) -> FlatDILI:
     """DFS preorder over the host tree, assigning node ids and slot ranges
-    (see `preorder` for why preorder is the canonical order)."""
+    (see `preorder` for why preorder is the canonical order).  Given a
+    stage recorder (`obs.SpanRecorder.stage`, called as
+    `stage(name, t0, t1)`) it records the spans `flatten.preorder`,
+    `flatten.tables`, `flatten.pairs` and `flatten.shape`."""
+    on = stage is not None
+    if on:
+        t0 = time.perf_counter()
     nodes = preorder(dili.root)
     ids = {id(nd): i for i, nd in enumerate(nodes)}
+    if on:
+        t1 = time.perf_counter()
     a, b, base, fo, dense, tag_all, key_all, val_all = node_tables(nodes, ids)
+    if on:
+        t2 = time.perf_counter()
 
     # pair table: key-sorted view of the PAIR slots.  Slots are id-ordered,
     # not key-ordered, so one argsort here buys O(log n + k) range queries
@@ -190,15 +201,23 @@ def flatten(dili: DILI) -> FlatDILI:
     slots = np.nonzero(tag_all == TAG_PAIR)[0].astype(np.int32)
     order = np.argsort(key_all[slots], kind="stable")
     pair_slot = slots[order]
+    pair_key, pair_val = key_all[pair_slot], val_all[pair_slot]
+    if on:
+        t3 = time.perf_counter()
+    max_depth, n_segments = _max_depth(dili.root), _n_segments(dili.root)
+    if on:
+        stage("flatten.preorder", t0, t1)
+        stage("flatten.tables", t1, t2)
+        stage("flatten.pairs", t2, t3)
+        stage("flatten.shape", t3, time.perf_counter())
 
     return FlatDILI(
         a=a, b=b, base=base, fo=fo, dense=dense,
         tag=tag_all, key=key_all, val=val_all,
-        pair_key=key_all[pair_slot], pair_val=val_all[pair_slot],
-        pair_slot=pair_slot,
-        root=ids[id(dili.root)], max_depth=_max_depth(dili.root),
+        pair_key=pair_key, pair_val=pair_val, pair_slot=pair_slot,
+        root=ids[id(dili.root)], max_depth=max_depth,
         key_lo=float(dili.root.lb), key_hi=float(dili.root.ub),
-        n_segments=_n_segments(dili.root),
+        n_segments=n_segments,
     )
 
 

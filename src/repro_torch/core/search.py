@@ -107,12 +107,18 @@ def _pad_pow2(x: np.ndarray, fill) -> np.ndarray:
     return out
 
 
+def host_cast(x: np.ndarray, dtype) -> np.ndarray:
+    """`x` cast in numpy to the numpy type of torch `dtype`, contiguous
+    (round-to-nearest-even like the reference's upload)."""
+    x = np.asarray(x).astype(torch.empty(0, dtype=dtype).numpy().dtype)
+    return np.ascontiguousarray(x)
+
+
 def _t(x: np.ndarray, dtype, device) -> torch.Tensor:
     """numpy -> tensor of `dtype` on `device` (the cast happens in numpy,
-    round-to-nearest-even like the reference's upload)."""
-    x = np.asarray(x).astype(torch.empty(0, dtype=dtype).numpy().dtype)
-    return torch.from_numpy(np.ascontiguousarray(x)).reshape(x.shape).to(
-        device)
+    `host_cast`)."""
+    shape = np.shape(x)     # `ascontiguousarray` makes a 0-d array 1-d
+    return torch.from_numpy(host_cast(x, dtype)).reshape(shape).to(device)
 
 
 def device_arrays(flat: FlatDILI, dtype=torch.float64, pad: bool = True,

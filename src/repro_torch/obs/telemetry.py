@@ -3,13 +3,18 @@ section 13) — one `MetricsRegistry` + one `SpanRecorder` + a retrace
 watchdog window, behind a single `enabled` flag.
 
 Cost contract: with `enabled=False` (the default) the read/write hot path
-pays exactly one attribute check plus one integer op-count increment per
-facade call — the op count must keep flowing even when latency capture is
-off, because `retraces_per_1k_ops` (the retrace regression number) is
+pays one attribute check plus one integer op-count increment per facade
+call — the op count must keep flowing even when latency capture is off,
+because `retraces_per_1k_ops` (the retrace regression number) is
 meaningful either way and the watchdog's counters are fed by the kernel
-loader (`kernels.dili_search`), not by the hot path.  With
+loader (`kernels.dili_search`), not by the hot path — and a local-engine
+lookup one more read of the flag and a few branches on a local copy of
+it, with no allocation; a full flatten pays one argument.  With
 `enabled=True` each facade call additionally pays one perf_counter pair
-and one histogram bucket increment.
+and one histogram bucket increment, and a local-engine lookup call or a
+full flatten records its stage spans (`tracing.LOOKUP_STAGES`,
+`tracing.FLATTEN_STAGES`: a perf_counter read and one ring append each,
+into the ring only).
 
 Snapshot schema (`snapshot()`) is the JAX package's `dili.metrics/1` key
 tree — fixed op set, fixed merge-span taxonomy, fixed retrace keys — so
@@ -17,8 +22,6 @@ consumers read both packages' metrics the same way.
 """
 
 from __future__ import annotations
-
-import time
 
 from . import watchdog
 from .metrics import MetricsRegistry
@@ -90,7 +93,7 @@ class Telemetry:
 
     def span(self, name: str, **attrs):
         """Context manager timing one pipeline stage; no-op when
-        disabled (merge-path only — never on the per-op hot path)."""
+        disabled."""
         if not self.enabled:
             return _NULL_SPAN
         return self.spans.span(name, **attrs)
@@ -186,10 +189,3 @@ class Telemetry:
 #: shared disabled instance for call sites that accept an optional
 #: telemetry (never enable this one — make your own)
 NULL_TELEMETRY = Telemetry(enabled=False)
-
-
-def timed(fn, *args, **kw):
-    """(result, dur_s) convenience for one-off stage timing."""
-    t0 = time.perf_counter()
-    out = fn(*args, **kw)
-    return out, time.perf_counter() - t0

@@ -1,11 +1,13 @@
-"""Trace spans over the merge pipeline (DESIGN.md section 13).
+"""Trace spans over the merge pipeline (DESIGN.md section 13) and inside
+a lookup call.
 
-A span is one timed stage of a pipeline run: `(name, t0, dur_s, attrs)`.
-The recorder keeps a bounded ring of recent spans (for debugging "what did
-the last merge do") plus running per-name duration lists (for percentile
-export), and is safe for the one-writer-plus-maintenance-worker threading
-model the merge pipeline already guarantees: each span is recorded by
-whichever single thread ran that stage, and list.append is atomic.
+A span is one timed stage of a pipeline run: `(name, t0, dur_s, attrs)`,
+`t0` a `time.perf_counter` reading.  The recorder keeps a bounded ring of
+recent spans (`RING_SPANS`, the oldest dropped first) plus running
+per-name duration lists (for percentile export), and is safe for the
+one-writer-plus-maintenance-worker threading model the merge pipeline
+already guarantees: each span is recorded by whichever single thread ran
+that stage, and deque/list appends are atomic.
 
 The merge span taxonomy is fixed (`MERGE_SPANS`) so every engine exports
 the same span names:
@@ -25,6 +27,30 @@ the same span names:
 Engines that run a stage synchronously inside another (e.g. the sharded
 engine's per-shard fold) record one span per shard with a `shard` attr.
 
+Stage spans split two host blocks that would otherwise be opaque, with
+telemetry on only (`SpanRecorder.stage`):
+
+  lookup.check     — the facade's `asarray`, finite check and pow2 padding
+  lookup.stage     — the local engine's overlay mirror and the numpy cast
+                     of the queries, up to the copy
+  lookup.upload    — the queries' host-to-device copy (host staging
+                     included)
+  lookup.download  — the payloads' and flags' device-to-host copies, the
+                     wait for the kernel included
+  flatten.preorder — `core.flat.flatten`'s node walk and numbering
+  flatten.tables   — its per-slot `node_tables`
+  flatten.pairs    — its key-sorted pair table (argsort and gathers)
+  flatten.shape    — its `_max_depth` and `_n_segments` walks
+
+One of each lookup stage per facade lookup call of the local engine, in
+that order and not overlapping (the kernel launch and the facade's final
+slicing lie between or after them; the pallas and sharded engines record
+`lookup.check` alone); one of each flatten stage inside every
+`merge.flatten` span of the local engine's full flatten.  Stage spans go into the
+ring only: not into the duration lists, so `summary()` (the
+`dili.metrics/1` `spans` block) keeps the reference's key set, and not
+into the trace sink, so `dili.trace/1` keeps its event names.
+
 `RECOVERY_SPANS` is the crash-recovery taxonomy (DESIGN.md section 14):
 load (checkpoint walk + npz read), replay (WAL tail through the fold
 path), publish (fresh base checkpoint + WAL re-arm).  Recovery spans are
@@ -36,8 +62,10 @@ from __future__ import annotations
 
 import time
 from collections import deque
+from collections.abc import Mapping
 from contextlib import contextmanager
-from dataclasses import dataclass, field
+from dataclasses import dataclass
+from types import MappingProxyType
 
 from .metrics import latency_summary
 
@@ -59,19 +87,30 @@ RECOVERY_SPANS = ("recovery.load", "recovery.replay", "recovery.publish")
 #                      sliced back to clients (attr `op`)
 SERVE_SPANS = ("serve.queue_wait", "serve.exec")
 
+LOOKUP_STAGES = ("lookup.check", "lookup.stage", "lookup.upload",
+                 "lookup.download")
+FLATTEN_STAGES = ("flatten.preorder", "flatten.tables", "flatten.pairs",
+                  "flatten.shape")
 
-@dataclass(frozen=True)
+# a 51-s window of 2^20-key lookups records ~40,000 stage spans; the ring
+# holds several such windows beside the merges' spans
+RING_SPANS = 1 << 18
+
+_NO_ATTRS: Mapping = MappingProxyType({})   # shared by attr-less spans
+
+
+@dataclass(slots=True)   # not frozen: a frozen init costs ~4x per span
 class Span:
     name: str
     t0: float                  # perf_counter timestamp at stage start
     dur_s: float
-    attrs: dict = field(default_factory=dict)
+    attrs: Mapping = _NO_ATTRS
 
 
 class SpanRecorder:
     """Bounded span ring + per-name duration accumulators."""
 
-    def __init__(self, maxlen: int = 2048,
+    def __init__(self, maxlen: int = RING_SPANS,
                  declare: tuple[str, ...] = MERGE_SPANS + RECOVERY_SPANS):
         self.ring: deque[Span] = deque(maxlen=maxlen)
         self._durations: dict[str, list[float]] = {n: [] for n in declare}
@@ -84,10 +123,16 @@ class SpanRecorder:
                **attrs) -> None:
         if t0 is None:
             t0 = time.perf_counter() - dur_s
-        self.ring.append(Span(name, t0, dur_s, attrs))
+        self.ring.append(Span(name, t0, dur_s, attrs or _NO_ATTRS))
         self._durations.setdefault(name, []).append(dur_s)
         if self.sink is not None:
             self.sink(name, t0, dur_s, attrs)
+
+    def stage(self, name: str, t0: float, t1: float) -> None:
+        """Record one stage span (a `LOOKUP_STAGES` or `FLATTEN_STAGES`
+        name) from `t0` to `t1`, into the ring only.  The caller reads
+        the clock and checks `Telemetry.enabled` itself."""
+        self.ring.append(Span(name, t0, t1 - t0))
 
     @contextmanager
     def span(self, name: str, **attrs):

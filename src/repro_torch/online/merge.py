@@ -401,7 +401,9 @@ class OnlineIndex:
                 incremental = fl.last_incremental
                 dirty_frac = fl.last_dirty_rows / max(fl.last_total_rows, 1)
             else:
-                flat = flatten(self.dili)  # the ONE full flatten per epoch
+                # the ONE full flatten per epoch
+                flat = flatten(self.dili, self.tel.spans.stage
+                               if self.tel.enabled else None)
                 self.dili.take_dirty()     # drain: nothing is dirty vs a
                 incremental = False        # fresh full materialization
                 dirty_frac = 1.0
@@ -473,18 +475,35 @@ class OnlineIndex:
         """Batched fused snapshot+overlay lookup -> (vals, found): one
         launch of the kernel instance for the store's dtype on the card
         (walk, dense probe and overlay resolve), depth-exact (trip count
-        from the snapshot)."""
+        from the snapshot).  With telemetry on it records the stage spans
+        `lookup.stage`, `lookup.upload` and `lookup.download`."""
+        on = self.tel.enabled
+        if on:
+            t0 = time.perf_counter()
         # overlay BEFORE snapshot (see pending_entries for the ordering)
         ova = self._overlay_arrays()
         tables = self.store.kernel_tables
-        q = S._t(np.atleast_1d(np.asarray(queries, np.float64)),
-                 self.store.dtype, self.device)
+        x = S.host_cast(np.atleast_1d(np.asarray(queries, np.float64)),
+                        self.store.dtype)
+        if on:
+            t1 = time.perf_counter()
+        q = torch.from_numpy(x).to(self.device)
+        if on:
+            t2 = time.perf_counter()
         with self._stats_lock:
             self.kernel_stats["lookups"] += 1
             self.kernel_stats["lanes"] += q.shape[0]
         v, f = K.search_with_overlay(tables, ova, q,
                                      early_exit=self.early_exit)
-        return v.cpu().numpy(), f.cpu().numpy()
+        if on:
+            t3 = time.perf_counter()
+        out = v.cpu().numpy(), f.cpu().numpy()
+        if on:
+            spans = self.tel.spans
+            spans.stage("lookup.stage", t0, t1)
+            spans.stage("lookup.upload", t1, t2)
+            spans.stage("lookup.download", t3, time.perf_counter())
+        return out
 
     def get(self, key: float) -> int | None:
         """Host-side exact point read (overlay state wins).  Resolves
