@@ -35,7 +35,7 @@ its tests; it is NOT what serving uses.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 
@@ -219,6 +219,32 @@ def flatten(dili: DILI, stage=None) -> FlatDILI:
         key_lo=float(dili.root.lb), key_hi=float(dili.root.ub),
         n_segments=n_segments,
     )
+
+
+def patch_payloads(flat: FlatDILI, keys, vals) -> FlatDILI | None:
+    """`flat` with the payloads of the pairs at `keys` (distinct) replaced
+    by `vals`, or None if any key is not exactly one of its pairs, bit for
+    bit (a signed zero counts as another key).  This is what `flatten()`
+    gives after upserts that only replace existing payloads (Alg. 7's
+    duplicate branch), since such an upsert moves no slot, model or node:
+    the two differ only in `val` at the pairs' slot rows and in
+    `pair_val`.  Those two arrays are fresh copies; every other array is
+    `flat`'s own, which nothing writes into once it is built."""
+    keys = np.asarray(keys, np.float64)
+    n = flat.n_pairs
+    at = np.searchsorted(flat.pair_key, keys)
+    if len(keys) and at.max() >= n:
+        return None
+    hit = flat.pair_key[at]
+    twice = (at + 1 < n) & (flat.pair_key[np.minimum(at + 1, n - 1)] == keys)
+    if not (np.array_equal(hit, keys) and not twice.any()
+            and np.array_equal(np.signbit(hit), np.signbit(keys))):
+        return None
+    vals = np.asarray(vals, np.int64)
+    val, pair_val = flat.val.copy(), flat.pair_val.copy()
+    val[flat.pair_slot[at]] = vals
+    pair_val[at] = vals
+    return replace(flat, val=val, pair_val=pair_val)
 
 
 def _n_segments(root) -> int:

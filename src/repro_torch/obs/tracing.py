@@ -41,15 +41,19 @@ telemetry on only (`SpanRecorder.stage`):
   flatten.tables   — its per-slot `node_tables`
   flatten.pairs    — its key-sorted pair table (argsort and gathers)
   flatten.shape    — its `_max_depth` and `_n_segments` walks
+  flatten.patch    — `core.flat.patch_payloads`, taken in place of the
+                     full flatten by a merge whose writes only replaced
+                     existing payloads
 
 One of each lookup stage per facade lookup call of the local engine, in
 that order and not overlapping (the kernel launch and the facade's final
 slicing lie between or after them; the pallas and sharded engines record
 `lookup.check` alone); one of each flatten stage inside every
-`merge.flatten` span of the local engine's full flatten.  Stage spans go into the
-ring only: not into the duration lists, so `summary()` (the
-`dili.metrics/1` `spans` block) keeps the reference's key set, and not
-into the trace sink, so `dili.trace/1` keeps its event names.
+`merge.flatten` span of the local engine's full flatten, and the patch
+stage alone inside one that patched the published flat instead.  Stage
+spans go into the ring only: not into the duration lists, so `summary()`
+(the `dili.metrics/1` `spans` block) keeps the reference's key set, and
+not into the trace sink, so `dili.trace/1` keeps its event names.
 
 `RECOVERY_SPANS` is the crash-recovery taxonomy (DESIGN.md section 14):
 load (checkpoint walk + npz read), replay (WAL tail through the fold
@@ -91,6 +95,7 @@ LOOKUP_STAGES = ("lookup.check", "lookup.stage", "lookup.upload",
                  "lookup.download")
 FLATTEN_STAGES = ("flatten.preorder", "flatten.tables", "flatten.pairs",
                   "flatten.shape")
+PATCH_STAGES = ("flatten.patch",)
 
 # a 51-s window of 2^20-key lookups records ~40,000 stage spans; the ring
 # holds several such windows beside the merges' spans
@@ -129,9 +134,9 @@ class SpanRecorder:
             self.sink(name, t0, dur_s, attrs)
 
     def stage(self, name: str, t0: float, t1: float) -> None:
-        """Record one stage span (a `LOOKUP_STAGES` or `FLATTEN_STAGES`
-        name) from `t0` to `t1`, into the ring only.  The caller reads
-        the clock and checks `Telemetry.enabled` itself."""
+        """Record one stage span (a `LOOKUP_STAGES`, `FLATTEN_STAGES` or
+        `PATCH_STAGES` name) from `t0` to `t1`, into the ring only.  The
+        caller reads the clock and checks `Telemetry.enabled` itself."""
         self.ring.append(Span(name, t0, t1 - t0))
 
     @contextmanager

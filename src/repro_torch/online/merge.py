@@ -5,6 +5,9 @@ The merge is the only place writes cross the writer/reader boundary: the
 overlay is folded through the host DILI with the paper's own machinery —
 upserts via Algorithm 7, tombstones via Algorithm 8 — then ONE `flatten()`
 produces the next epoch's snapshot and `SnapshotStore.publish` flips it in.
+A merge whose writes only replaced existing payloads patches the published
+snapshot instead (`core.flat.patch_payloads`): the same snapshot, bit for
+bit, in O(writes) rather than O(tree).
 Between merges the read path serves snapshot+overlay fused lookups (one
 launch of the lookup kernel's f64/i64 or f32/i64 instance on the card),
 so results are exact at every point in time.
@@ -37,7 +40,7 @@ import torch
 
 from ..core import search as S
 from ..core.dili import DILI, LAMBDA, bulk_load
-from ..core.flat import flatten
+from ..core.flat import flatten, patch_payloads
 from ..device import resolve_device
 from ..kernels import ops as K
 from ..kernels.dili_search import overlay_filter
@@ -112,7 +115,8 @@ class OnlineIndex:
     waits for their kernels and no kernel can outlive the tables it reads.
 
     `kernel_stats` counts `lookups` (calls) and `lanes` (queries sent to
-    the kernel) since build, under a lock (readers run concurrently) —
+    the kernel) since build, under a lock (readers run concurrently), and
+    `n_patched_flattens` the full flattens a payload patch stood in for —
     port only.
     """
 
@@ -154,6 +158,7 @@ class OnlineIndex:
         self.maint_degraded = False    # background retries exhausted ->
         #                                merges run synchronously now
         self.kernel_stats = dict(lookups=0, lanes=0)
+        self.n_patched_flattens = 0
         self._stats_lock = threading.Lock()
         self._merging: TombstoneOverlay | None = None   # frozen, folding
         self._merge_failed = False           # frozen needs writer reclaim
@@ -355,6 +360,7 @@ class OnlineIndex:
     def _merge_steps(self, frozen: TombstoneOverlay, reason: str,
                      lag: int, t_sub: float) -> EpochStats:
         t0 = time.perf_counter()
+        payloads = None     # (keys, vals) when the fold only replaced them
         self.tel.record_span("merge.queue_wait", t0 - t_sub, reason=reason)
         if self.accounting is not None:
             with self.tel.span("merge.fold", reason=reason,
@@ -372,15 +378,17 @@ class OnlineIndex:
         else:
             with self.tel.span("merge.fold", reason=reason,
                                pending=frozen.count):
-                fold_overlay(self.dili, frozen)
+                inserted = fold_overlay(self.dili, frozen)
             retrains = 0
+            if not inserted and frozen.n_tombstones == 0:
+                payloads = frozen.entries()[:2]
         merge_s = time.perf_counter() - t0
         self.n_merges += 1
         self.n_retrains += retrains
         self.merge_reasons[reason] += 1
         st = self._publish(overlay_fill=frozen.full_fraction,
                            merge_s=merge_s, n_retrains=retrains,
-                           merge_lag=lag)
+                           merge_lag=lag, payloads=payloads)
         # drop the frozen overlay only AFTER the flip: between publish and
         # here readers re-apply already-folded entries — idempotent
         self._merging = None
@@ -392,7 +400,12 @@ class OnlineIndex:
         return st
 
     def _publish(self, overlay_fill: float = 0.0, merge_s: float = 0.0,
-                 n_retrains: int = 0, merge_lag: int = 0) -> EpochStats:
+                 n_retrains: int = 0, merge_lag: int = 0,
+                 payloads: tuple | None = None) -> EpochStats:
+        """Flatten, upload and flip.  `payloads` are the (keys, vals) of a
+        fold that only replaced existing payloads: where every key is a
+        pair of the published flat, patching that flat gives what the
+        full flatten would, and the stats record a full flatten."""
         t0 = time.perf_counter()
         fl = self.flattener
         with self.tel.span("merge.flatten"):
@@ -401,9 +414,19 @@ class OnlineIndex:
                 incremental = fl.last_incremental
                 dirty_frac = fl.last_dirty_rows / max(fl.last_total_rows, 1)
             else:
-                # the ONE full flatten per epoch
-                flat = flatten(self.dili, self.tel.spans.stage
-                               if self.tel.enabled else None)
+                flat = None
+                if payloads is not None:
+                    t_patch = time.perf_counter()
+                    flat = patch_payloads(self.store.flat, *payloads)
+                    if flat is not None:
+                        self.n_patched_flattens += 1
+                        if self.tel.enabled:
+                            self.tel.spans.stage("flatten.patch", t_patch,
+                                                 time.perf_counter())
+                if flat is None:
+                    # the ONE full flatten per epoch
+                    flat = flatten(self.dili, self.tel.spans.stage
+                                   if self.tel.enabled else None)
                 self.dili.take_dirty()     # drain: nothing is dirty vs a
                 incremental = False        # fresh full materialization
                 dirty_frac = 1.0

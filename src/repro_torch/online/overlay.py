@@ -16,7 +16,8 @@ still exist in the snapshot.  Semantics:
 
 The structure is persistent (every write returns a new overlay) so a reader
 holding one overlay mirror is never invalidated mid-lookup.  The class and
-`fold_overlay` are the reference's numpy code unchanged.
+`fold_overlay` are the reference's numpy code, the fold's return value
+aside.
 """
 
 from __future__ import annotations
@@ -118,16 +119,20 @@ class TombstoneOverlay:
                 self.tomb[: self.count])
 
 
-def fold_overlay(dili, ov: TombstoneOverlay) -> None:
+def fold_overlay(dili, ov: TombstoneOverlay) -> bool:
     """Fold pending writes through the host DILI — the writer-boundary
     crossing shared by `OnlineIndex.merge` and `sharded_merge`: tombstones
-    via Algorithm 8 (delete), live entries via Algorithm 7 (upsert)."""
+    via Algorithm 8 (delete), live entries via Algorithm 7 (upsert).
+    Returns whether any upsert inserted a key (port only: the reference
+    returns None)."""
     keys, vals, tomb = ov.entries()
+    inserted = False
     for k, v, t in zip(keys, vals, tomb):
         if t:
             dili.delete(float(k))
-        else:
-            dili.upsert(float(k), int(v))
+        elif dili.upsert(float(k), int(v)):
+            inserted = True
+    return inserted
 
 
 # ---------------------------------------------------------------------------
