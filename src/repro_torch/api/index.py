@@ -220,12 +220,20 @@ class LearnedIndex:
                 if wal_op is not None:
                     self._log_write(wal_op, *args)
                 fn(*args)
+                self._mark_applied(wal_op)
                 self._record(op, tel, t0, n)
             else:
                 tel.count_ops(n)
                 if wal_op is not None:
                     self._log_write(wal_op, *args)
                 fn(*args)
+                self._mark_applied(wal_op)
+
+    def _mark_applied(self, wal_op: int | None) -> None:
+        """After the engine applied a logged write: move the checkpoint
+        watermark past it (`DurabilityManager.mark_applied`)."""
+        if wal_op is not None and self._dur is not None:
+            self._dur.mark_applied()
 
     def _log_write(self, op: int, keys: np.ndarray,
                    vals: np.ndarray | None = None) -> None:

@@ -30,7 +30,10 @@ Threading: `log` runs on the writer thread; `on_merge_publish` may run on
 the maintenance worker (background merges).  A single lock serializes
 checkpointing against appends and against concurrent publish callbacks;
 the watermark is sampled under that lock BEFORE `items()` so replay
-overlap stays idempotent (see durability.checkpoint).
+overlap stays idempotent (see durability.checkpoint).  A batch appended
+but not yet applied by the engine (`log` up to `mark_applied`) stays
+below the watermark of a checkpoint taken on another thread meanwhile:
+`items()` there does not hold it yet, so it has to be replayed.
 """
 
 from __future__ import annotations
@@ -71,6 +74,9 @@ class DurabilityManager:
                              fsync_interval_s=cfg.fsync_interval_s,
                              start_lsn=start_lsns.get(s, 0))
             for s in range(n)}
+        # (writer thread, each shard's lsn before its append) while a
+        # logged batch waits to be applied, else None
+        self._unapplied: tuple[int, dict[int, int]] | None = None
 
     # -- construction --------------------------------------------------------
 
@@ -108,6 +114,9 @@ class DurabilityManager:
         with self._lock:
             if self._closed:
                 raise RuntimeError("durability manager is closed")
+            if self._unapplied is None:
+                self._unapplied = (threading.get_ident(), {
+                    s: w.next_lsn for s, w in self.writers.items()})
             if len(self.writers) == 1:
                 self.writers[0].append(op, keys, vals, epoch)
             else:
@@ -117,6 +126,12 @@ class DurabilityManager:
                         op, keys[m], None if vals is None else vals[m],
                         epoch)
         hooks.crash_point("wal.append")
+
+    def mark_applied(self) -> None:
+        """The engine has applied every batch logged so far (the facade
+        calls this after each write, under its writer lock)."""
+        with self._lock:
+            self._unapplied = None
 
     def sync(self) -> None:
         """Durability barrier: fsync every shard log (facade `flush()`)."""
@@ -147,8 +162,14 @@ class DurabilityManager:
                 return None
             # watermark BEFORE items(): records racing past this sample
             # end up both in the checkpoint and in the replayed tail —
-            # idempotent; sampling after could lose them
+            # idempotent; sampling after could lose them.  A batch still
+            # on its way into the engine on another thread is replayed
+            # too (on the writer's own thread, a merge inside the apply,
+            # the engine already holds it)
             lsns = {s: w.next_lsn for s, w in self.writers.items()}
+            if self._unapplied is not None \
+                    and self._unapplied[0] != threading.get_ident():
+                lsns.update(self._unapplied[1])
             lsns.update(self._extra_lsns)
             keys, vals = self.index.items()
             self._step += 1

@@ -28,6 +28,8 @@ import numpy as np
 from ..core.dili import DILI, Leaf, rebuild_subtree, split_leaf
 from .config import MaintenanceConfig
 
+PAUSE_EVERY = 8     # fold entries between calls of `pause` (~60 us each)
+
 
 @dataclass
 class LeafAccount:
@@ -170,7 +172,8 @@ class LeafAccounting:
 
 
 def fold_with_accounting(dili: DILI, ov,
-                         accounting: LeafAccounting | None) -> None:
+                         accounting: LeafAccounting | None,
+                         pause=None) -> None:
     """`fold_overlay` plus per-write accounting: tombstones via Algorithm 8,
     live entries via Algorithm 7, each noted against the top-level leaf the
     write lands in (the incremental flattener's segment unit).
@@ -179,11 +182,15 @@ def fold_with_accounting(dili: DILI, ov,
     bodies are driven with it directly — `dili.upsert`/`delete` would
     re-locate the same leaf, doubling the host-walk cost on the merge
     path this subsystem exists to shrink.  The dirty marking the public
-    entry points perform happens here instead."""
+    entry points perform happens here instead.  `pause`, when given, is
+    called before every `PAUSE_EVERY` entries (the maintenance worker's
+    yield to write calls)."""
     if accounting is not None:
         accounting.begin_epoch()
     keys, vals, tomb = ov.entries()
-    for k, v, t in zip(keys, vals, tomb):
+    for i, (k, v, t) in enumerate(zip(keys, vals, tomb)):
+        if pause is not None and not i % PAUSE_EVERY:
+            pause()
         k = float(k)
         leaf, _ = dili.locate_leaf(k)
         dili.dirty_ids.add(id(leaf))

@@ -32,6 +32,7 @@ block: correctness never depends on the plumbing being airtight.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -86,6 +87,13 @@ def flatten_segment(root) -> SegmentBlock:
         tag=tag, key=key, val=val, child_mask=tag == TAG_CHILD,
         pair_key=key[pair_slot], pair_val=val[pair_slot],
         pair_slot=pair_slot, depth=_max_depth(root))
+
+
+PAUSE_UNITS = 512    # units of passes 2 and 3 between calls of `pause`
+
+
+def _no_pause() -> None:
+    pass
 
 
 class IncrementalFlattener:
@@ -152,8 +160,20 @@ class IncrementalFlattener:
 
     # -- the splice ----------------------------------------------------------
 
-    def flatten(self, dili: DILI, dirty_ids: set[int] | None = None
-                ) -> FlatDILI:
+    def flatten(self, dili: DILI, dirty_ids: set[int] | None = None,
+                stage=None, pause=None) -> FlatDILI:
+        """The splice.  Given a stage recorder (`obs.SpanRecorder.stage`,
+        called as `stage(name, t0, t1)`) it records the spans
+        `splice.units`, `splice.refresh`, `splice.offsets` and
+        `splice.assemble`.  `pause`, when given, is called between units
+        of its work: before each re-flattened segment, every
+        `PAUSE_UNITS` units of passes 2 and 3, and between the final
+        concatenations (the maintenance worker's yield to write calls)."""
+        if pause is None:
+            pause = _no_pause
+        on = stage is not None
+        if on:
+            t0 = time.perf_counter()
         dirty_ids = dirty_ids or set()
         units = self._units(dili.root)
         had_cache = bool(self._cache)
@@ -170,6 +190,8 @@ class IncrementalFlattener:
                 self.n_fallback_full += 1
                 break
             dirty_segs.add(seg)
+        if on:
+            t1 = time.perf_counter()
 
         # pass 1: refresh segment blocks (cache miss == dirty by identity)
         seen: set[int] = set()
@@ -180,6 +202,7 @@ class IncrementalFlattener:
             sid = id(nd)
             seen.add(sid)
             if force_full or sid in dirty_segs or sid not in self._cache:
+                pause()
                 old = self._cache.pop(sid, None)
                 if old is not None:
                     for onode in old.nodes:
@@ -194,6 +217,8 @@ class IncrementalFlattener:
         for dead in set(self._cache) - seen:
             for onode in self._cache.pop(dead).nodes:
                 self._node2seg.pop(id(onode), None)
+        if on:
+            t2 = time.perf_counter()
 
         # pass 2: assign global offsets per unit (plain python ints — a
         # numpy scalar store per unit costs more than the whole pass)
@@ -201,7 +226,9 @@ class IncrementalFlattener:
         slot_off: list[int] = []
         cur_n = cur_s = 0
         blocks: list[SegmentBlock | None] = []
-        for kind, nd, _ in units:
+        for u, (kind, nd, _) in enumerate(units):
+            if not u % PAUSE_UNITS:
+                pause()
             node_off.append(cur_n)
             slot_off.append(cur_s)
             if kind == "spine":
@@ -214,6 +241,8 @@ class IncrementalFlattener:
                 cur_n += blk.n_nodes
                 cur_s += blk.n_slots
         unit_of_node = {id(nd): u for u, (_, nd, _) in enumerate(units)}
+        if on:
+            t3 = time.perf_counter()
 
         # pass 3: assemble.  The unit loop only APPENDS segment-local
         # arrays (zero numpy calls per cached segment — with many small
@@ -232,6 +261,8 @@ class IncrementalFlattener:
         zero1_i32 = np.zeros(1, np.int32)
         max_depth = 1
         for u, (kind, nd, d) in enumerate(units):
+            if not u % PAUSE_UNITS:
+                pause()
             if kind == "spine":
                 a_parts.append(np.array([nd.a]))
                 b_parts.append(np.array([nd.b]))
@@ -280,6 +311,7 @@ class IncrementalFlattener:
         z8, zf, zi = (np.zeros(0, np.int8), np.zeros(0),
                       np.zeros(0, np.int64))
         zi32 = np.zeros(0, np.int32)
+        pause()
         tag = np.concatenate(tag_parts) if tag_parts else z8
         # base rows are segment-local: one repeat of each unit's slot
         # offset over its node rows re-bases them globally (spine locals
@@ -290,27 +322,39 @@ class IncrementalFlattener:
         # CHILD slot entries of a segment hold segment-local node ids;
         # shift them by their unit's node offset in one masked add
         # (spine units carry shift 0 — their targets are already global)
+        pause()
         val = np.concatenate(val_parts) if val_parts else zi
         child = tag == TAG_CHILD
         val[child] += np.repeat(np.asarray(u_noff, np.int64),
                                 np.asarray(u_slots, np.int64))[child]
         # sorted pair runs: slot ranks are segment-local too
+        pause()
         pair_slot = np.concatenate(ps_parts) if ps_parts else zi32
         pair_slot += np.repeat(np.asarray(seg_soff, np.int32),
                                np.asarray(seg_pairs, np.int32))
-        return FlatDILI(
-            a=np.concatenate(a_parts) if a_parts else zf,
-            b=np.concatenate(b_parts) if b_parts else zf,
+        def cat(parts, empty):
+            pause()
+            return np.concatenate(parts) if parts else empty
+
+        flat = FlatDILI(
+            a=cat(a_parts, zf),
+            b=cat(b_parts, zf),
             base=base,
-            fo=(np.concatenate(fo_parts) if fo_parts else zi32),
-            dense=np.concatenate(dense_parts) if dense_parts else z8,
+            fo=cat(fo_parts, zi32),
+            dense=cat(dense_parts, z8),
             tag=tag,
-            key=np.concatenate(key_parts) if key_parts else zf,
+            key=cat(key_parts, zf),
             val=val,
-            pair_key=np.concatenate(pk_parts) if pk_parts else zf,
-            pair_val=np.concatenate(pv_parts) if pv_parts else zi,
+            pair_key=cat(pk_parts, zf),
+            pair_val=cat(pv_parts, zi),
             pair_slot=pair_slot,
             root=0, max_depth=max_depth,
             key_lo=float(dili.root.lb), key_hi=float(dili.root.ub),
             n_segments=len(self._cache),
         )
+        if on:
+            stage("splice.units", t0, t1)
+            stage("splice.refresh", t1, t2)
+            stage("splice.offsets", t2, t3)
+            stage("splice.assemble", t3, time.perf_counter())
+        return flat

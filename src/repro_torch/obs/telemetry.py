@@ -12,9 +12,10 @@ lookup one more read of the flag and a few branches on a local copy of
 it, with no allocation; a full flatten pays one argument.  With
 `enabled=True` each facade call additionally pays one perf_counter pair
 and one histogram bucket increment, and a local-engine lookup call, a
-full flatten or a payload patch records its stage spans
-(`tracing.LOOKUP_STAGES`, `tracing.FLATTEN_STAGES`,
-`tracing.PATCH_STAGES`: a perf_counter read and one ring append each,
+full flatten, a payload patch or a splice flatten records its stage spans
+(`tracing.LOOKUP_STAGES` with `tracing.OVERLAY_STAGES`,
+`tracing.FLATTEN_STAGES`, `tracing.PATCH_STAGES`,
+`tracing.SPLICE_STAGES`: a perf_counter read and one ring append each,
 into the ring only).
 
 Snapshot schema (`snapshot()`) is the JAX package's `dili.metrics/1` key

@@ -33,6 +33,8 @@ telemetry on only (`SpanRecorder.stage`):
   lookup.check     — the facade's `asarray`, finite check and pow2 padding
   lookup.stage     — the local engine's overlay mirror and the numpy cast
                      of the queries, up to the copy
+  lookup.overlay   — inside `lookup.stage`: the live-over-frozen overlay
+                     resolve and its device mirror (`_overlay_arrays`)
   lookup.upload    — the queries' host-to-device copy (host staging
                      included)
   lookup.download  — the payloads' and flags' device-to-host copies, the
@@ -44,13 +46,22 @@ telemetry on only (`SpanRecorder.stage`):
   flatten.patch    — `core.flat.patch_payloads`, taken in place of the
                      full flatten by a merge whose writes only replaced
                      existing payloads
+  splice.units     — the incremental flattener's unit walk and the
+                     translation of the dirty node ids to segments
+  splice.refresh   — its pass 1: dirty segments re-flattened, dead ones
+                     dropped
+  splice.offsets   — its pass 2: each unit's node and slot offsets
+  splice.assemble  — its pass 3: the concatenations and shifts, up to the
+                     `FlatDILI`
 
 One of each lookup stage per facade lookup call of the local engine, in
 that order and not overlapping (the kernel launch and the facade's final
 slicing lie between or after them; the pallas and sharded engines record
-`lookup.check` alone); one of each flatten stage inside every
-`merge.flatten` span of the local engine's full flatten, and the patch
-stage alone inside one that patched the published flat instead.  Stage
+`lookup.check` alone), and one `lookup.overlay` nested in its
+`lookup.stage`; one of each flatten stage inside every `merge.flatten`
+span of the local engine's full flatten, the patch stage alone inside one
+that patched the published flat instead, and one of each splice stage,
+in order, inside one that ran the incremental flattener.  Stage
 spans go into the ring only: not into the duration lists, so `summary()`
 (the `dili.metrics/1` `spans` block) keeps the reference's key set, and
 not into the trace sink, so `dili.trace/1` keeps its event names.
@@ -96,6 +107,9 @@ LOOKUP_STAGES = ("lookup.check", "lookup.stage", "lookup.upload",
 FLATTEN_STAGES = ("flatten.preorder", "flatten.tables", "flatten.pairs",
                   "flatten.shape")
 PATCH_STAGES = ("flatten.patch",)
+SPLICE_STAGES = ("splice.units", "splice.refresh", "splice.offsets",
+                 "splice.assemble")
+OVERLAY_STAGES = ("lookup.overlay",)
 
 # a 51-s window of 2^20-key lookups records ~40,000 stage spans; the ring
 # holds several such windows beside the merges' spans
@@ -134,9 +148,10 @@ class SpanRecorder:
             self.sink(name, t0, dur_s, attrs)
 
     def stage(self, name: str, t0: float, t1: float) -> None:
-        """Record one stage span (a `LOOKUP_STAGES`, `FLATTEN_STAGES` or
-        `PATCH_STAGES` name) from `t0` to `t1`, into the ring only.  The
-        caller reads the clock and checks `Telemetry.enabled` itself."""
+        """Record one stage span (a `LOOKUP_STAGES`, `FLATTEN_STAGES`,
+        `PATCH_STAGES`, `SPLICE_STAGES` or `OVERLAY_STAGES` name) from `t0`
+        to `t1`, into the ring only.  The caller reads the clock and checks
+        `Telemetry.enabled` itself."""
         self.ring.append(Span(name, t0, t1 - t0))
 
     @contextmanager

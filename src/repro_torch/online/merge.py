@@ -54,6 +54,9 @@ from .overlay import (LIVE, TOMBSTONE, TombstoneOverlay, fold_overlay,
                       overlay_device_arrays)
 
 
+YIELD_S = 50e-6     # the worker's sleep while a write call runs
+
+
 @dataclass(frozen=True)
 class MergePolicy:
     max_fill: float = 0.5          # overlay full_fraction trigger
@@ -161,6 +164,10 @@ class OnlineIndex:
         self.n_patched_flattens = 0
         self._stats_lock = threading.Lock()
         self._merging: TombstoneOverlay | None = None   # frozen, folding
+        # a write call is in progress: the worker's merge steps give it
+        # the GIL (`_yield_to_writers`).  A flag, not a count: every
+        # writer clears it last, so it can never stay set
+        self._writing = False
         self._merge_failed = False           # frozen needs writer reclaim
         self._ov_cache: tuple | None = None  # (overlay, merging, arrays)
         self._writes_since_publish = 0
@@ -187,17 +194,25 @@ class OnlineIndex:
         self.upsert_batch([key], [val])
 
     def upsert_batch(self, keys, vals) -> None:
-        self.overlay = self.overlay.upsert_batch(keys, vals)
-        self._unlocated_keys.extend(np.atleast_1d(keys).tolist())
-        self._note_writes(len(np.atleast_1d(keys)))
+        self._writing = True
+        try:
+            self.overlay = self.overlay.upsert_batch(keys, vals)
+            self._unlocated_keys.extend(np.atleast_1d(keys).tolist())
+            self._note_writes(len(np.atleast_1d(keys)))
+        finally:
+            self._writing = False
 
     def delete(self, key: float) -> None:
         self.delete_batch([key])
 
     def delete_batch(self, keys) -> None:
-        self.overlay = self.overlay.delete_batch(keys)
-        self._unlocated_keys.extend(np.atleast_1d(keys).tolist())
-        self._note_writes(len(np.atleast_1d(keys)))
+        self._writing = True
+        try:
+            self.overlay = self.overlay.delete_batch(keys)
+            self._unlocated_keys.extend(np.atleast_1d(keys).tolist())
+            self._note_writes(len(np.atleast_1d(keys)))
+        finally:
+            self._writing = False
 
     def _note_writes(self, n: int) -> None:
         self._writes_since_publish += n
@@ -311,6 +326,15 @@ class OnlineIndex:
         with trace_context(tids):
             return self._merge_impl(frozen, reason, lag, t_sub, retry=True)
 
+    def _yield_to_writers(self) -> None:
+        """Called by the worker's merge steps between units of work: while
+        a write call runs, sleep (the GIL released) until it has returned.
+        The worker's Python loops and long numpy calls would otherwise
+        take the GIL back at each numpy call of the write that lets go of
+        it, stalling the writer for a merge's worth of tens of ms."""
+        while self._writing:
+            time.sleep(YIELD_S)
+
     def _merge_impl(self, frozen: TombstoneOverlay, reason: str,
                     lag: int, t_sub: float,
                     retry: bool = False) -> EpochStats:
@@ -338,7 +362,9 @@ class OnlineIndex:
         for attempt in range(attempts):
             t0 = time.perf_counter()
             try:
-                return self._merge_steps(frozen, reason, lag, t_sub)
+                return self._merge_steps(
+                    frozen, reason, lag, t_sub,
+                    self._yield_to_writers if retry else None)
             except BaseException:
                 # failure visibility is unconditional (not gated on
                 # `enabled`) but only on the index's OWN registry —
@@ -358,14 +384,17 @@ class OnlineIndex:
         raise AssertionError("unreachable")
 
     def _merge_steps(self, frozen: TombstoneOverlay, reason: str,
-                     lag: int, t_sub: float) -> EpochStats:
+                     lag: int, t_sub: float, pause=None) -> EpochStats:
+        """The pipeline's steps; `pause` (on the worker) is called between
+        their units of work."""
         t0 = time.perf_counter()
         payloads = None     # (keys, vals) when the fold only replaced them
         self.tel.record_span("merge.queue_wait", t0 - t_sub, reason=reason)
         if self.accounting is not None:
             with self.tel.span("merge.fold", reason=reason,
                                pending=frozen.count):
-                fold_with_accounting(self.dili, frozen, self.accounting)
+                fold_with_accounting(self.dili, frozen, self.accounting,
+                                     pause)
             with self.tel.span("merge.retrain"):
                 retrains = run_retrains(self.dili, self.accounting)
             with self.tel.span("merge.recluster"):
@@ -388,7 +417,7 @@ class OnlineIndex:
         self.merge_reasons[reason] += 1
         st = self._publish(overlay_fill=frozen.full_fraction,
                            merge_s=merge_s, n_retrains=retrains,
-                           merge_lag=lag, payloads=payloads)
+                           merge_lag=lag, payloads=payloads, pause=pause)
         # drop the frozen overlay only AFTER the flip: between publish and
         # here readers re-apply already-folded entries — idempotent
         self._merging = None
@@ -401,16 +430,19 @@ class OnlineIndex:
 
     def _publish(self, overlay_fill: float = 0.0, merge_s: float = 0.0,
                  n_retrains: int = 0, merge_lag: int = 0,
-                 payloads: tuple | None = None) -> EpochStats:
+                 payloads: tuple | None = None,
+                 pause=None) -> EpochStats:
         """Flatten, upload and flip.  `payloads` are the (keys, vals) of a
         fold that only replaced existing payloads: where every key is a
         pair of the published flat, patching that flat gives what the
         full flatten would, and the stats record a full flatten."""
         t0 = time.perf_counter()
         fl = self.flattener
+        stage = self.tel.spans.stage if self.tel.enabled else None
         with self.tel.span("merge.flatten"):
             if fl is not None:
-                flat = fl.flatten(self.dili, self.dili.take_dirty())
+                flat = fl.flatten(self.dili, self.dili.take_dirty(), stage,
+                                  pause)
                 incremental = fl.last_incremental
                 dirty_frac = fl.last_dirty_rows / max(fl.last_total_rows, 1)
             else:
@@ -420,13 +452,12 @@ class OnlineIndex:
                     flat = patch_payloads(self.store.flat, *payloads)
                     if flat is not None:
                         self.n_patched_flattens += 1
-                        if self.tel.enabled:
-                            self.tel.spans.stage("flatten.patch", t_patch,
-                                                 time.perf_counter())
+                        if stage is not None:
+                            stage("flatten.patch", t_patch,
+                                  time.perf_counter())
                 if flat is None:
                     # the ONE full flatten per epoch
-                    flat = flatten(self.dili, self.tel.spans.stage
-                                   if self.tel.enabled else None)
+                    flat = flatten(self.dili, stage)
                 self.dili.take_dirty()     # drain: nothing is dirty vs a
                 incremental = False        # fresh full materialization
                 dirty_frac = 1.0
@@ -441,6 +472,8 @@ class OnlineIndex:
             n_segments=flat.n_segments,
             dirty_rows=fl.last_dirty_rows if fl is not None else flat.n_slots,
             total_rows=fl.last_total_rows if fl is not None else flat.n_slots)
+        if pause is not None:
+            pause()
         with self.tel.span("merge.publish", epoch=self.store.epoch + 1):
             st = self.store.publish(flat, overlay_fill=overlay_fill,
                                     merge_lag=merge_lag, merge_s=merge_s,
@@ -499,12 +532,15 @@ class OnlineIndex:
         launch of the kernel instance for the store's dtype on the card
         (walk, dense probe and overlay resolve), depth-exact (trip count
         from the snapshot).  With telemetry on it records the stage spans
-        `lookup.stage`, `lookup.upload` and `lookup.download`."""
+        `lookup.stage` (holding `lookup.overlay`), `lookup.upload` and
+        `lookup.download`."""
         on = self.tel.enabled
         if on:
             t0 = time.perf_counter()
         # overlay BEFORE snapshot (see pending_entries for the ordering)
         ova = self._overlay_arrays()
+        if on:
+            t_ov = time.perf_counter()
         tables = self.store.kernel_tables
         x = S.host_cast(np.atleast_1d(np.asarray(queries, np.float64)),
                         self.store.dtype)
@@ -524,6 +560,7 @@ class OnlineIndex:
         if on:
             spans = self.tel.spans
             spans.stage("lookup.stage", t0, t1)
+            spans.stage("lookup.overlay", t0, t_ov)
             spans.stage("lookup.upload", t1, t2)
             spans.stage("lookup.download", t3, time.perf_counter())
         return out

@@ -298,6 +298,40 @@ def test_durability_with_background_maintenance(tmp_path, engine):
         rx.close()
 
 
+@pytest.mark.parametrize("engine", ENGINES)
+def test_checkpoint_between_append_and_apply_keeps_the_write(
+        tmp_path, engine, monkeypatch):
+    """A checkpoint taken on another thread (the maintenance worker's
+    publish) after a batch is appended to the WAL and before the engine
+    applies it must not count the batch as held: after a crash, recovery
+    replays it."""
+    import threading
+    from repro_torch.durability import manager
+    keys = np.arange(0, 600, 2, dtype=np.float64)
+    cfg = TA.IndexConfig(engine=engine,
+                         durability=TA.DurabilityConfig(dir=str(tmp_path)))
+    ix = _build(TA, keys, None, cfg)
+    hit = []
+
+    def checkpoint_elsewhere(point):
+        if point == "wal.append" and not hit:
+            hit.append(point)
+            th = threading.Thread(target=ix._dur.checkpoint)
+            th.start()
+            th.join()
+
+    monkeypatch.setattr(manager.hooks, "crash_point", checkpoint_elsewhere)
+    new = np.arange(len(keys), dtype=np.int64) + 10_000
+    ix.upsert(keys, new)
+    assert hit
+    ix.abandon()
+    rx = _recover(TA, tmp_path)
+    try:
+        _same_items(rx.items(), (keys, new))
+    finally:
+        rx.close()
+
+
 # ---------------------------------------------------------------------------
 # save / load (tests/test_api_persistence.py and the atomic-save tests)
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The stage spans inside a lookup call and a full flatten (the port only,
 on the CPU): one of each stage per call or per `merge.flatten`, in order,
-not overlapping, inside the interval that holds them; nothing with
+not overlapping, inside the interval that holds them, and a lookup's
+`lookup.overlay` inside its `lookup.stage`; nothing with
 telemetry off; the ring keeps the last `RING_SPANS` spans; and the
 `dili.metrics/1` span keys and `dili.trace/1` event names are the same
 whether stage spans are recorded or not."""
@@ -15,9 +16,11 @@ import torch
 from repro_torch.api import IndexConfig, LearnedIndex
 from repro_torch.core.dili import bulk_load
 from repro_torch.core.flat import flatten
+from repro_torch.maintain import MaintenanceConfig
 from repro_torch.obs.tracing import (FLATTEN_STAGES, LOOKUP_STAGES,
-                                     MERGE_SPANS, RECOVERY_SPANS, RING_SPANS,
-                                     Span, SpanRecorder)
+                                     MERGE_SPANS, OVERLAY_STAGES,
+                                     RECOVERY_SPANS, RING_SPANS,
+                                     SPLICE_STAGES, Span, SpanRecorder)
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +53,14 @@ def test_lookup_records_each_stage_once_in_order(keys, dtype):
     a = time.perf_counter()
     ix.lookup(keys[100:1100])
     b = time.perf_counter()
-    _in_order_and_disjoint(_inside(ix, a, b), LOOKUP_STAGES, a, b)
+    spans = _inside(ix, a, b)
+    _in_order_and_disjoint([s for s in spans if s.name in LOOKUP_STAGES],
+                           LOOKUP_STAGES, a, b)
+    stage, = [s for s in spans if s.name == "lookup.stage"]
+    overlay, = [s for s in spans if s.name not in LOOKUP_STAGES]
+    assert overlay.name == OVERLAY_STAGES[0]
+    assert stage.t0 <= overlay.t0
+    assert overlay.t0 + overlay.dur_s <= stage.t0 + stage.dur_s
     ix.close()
 
 
@@ -119,11 +129,29 @@ def test_stage_spans_leave_metrics_and_trace_unchanged(keys, tmp_path):
     want = _calls(off, keys, tmp_path / "off.json")
     assert got == want
     assert got[0] == set(MERGE_SPANS + RECOVERY_SPANS)
-    assert not set(got[1]) & set(LOOKUP_STAGES + FLATTEN_STAGES)
+    stages = LOOKUP_STAGES + OVERLAY_STAGES + FLATTEN_STAGES + SPLICE_STAGES
+    assert not set(got[1]) & set(stages)
     assert {s.name for s in on.telemetry.spans.spans()} >= \
-        set(LOOKUP_STAGES + FLATTEN_STAGES)
-    assert all(on.telemetry.spans.count(n) == 0
-               for n in LOOKUP_STAGES + FLATTEN_STAGES)
+        set(LOOKUP_STAGES + OVERLAY_STAGES + FLATTEN_STAGES)
+    assert all(on.telemetry.spans.count(n) == 0 for n in stages)
+    for ix in (on, off):
+        ix.close()
+
+
+def test_splice_stage_spans_leave_metrics_and_trace_unchanged(keys,
+                                                              tmp_path):
+    """The same with background maintenance, whose merges splice-flatten
+    on the worker."""
+    cfg = dict(maintenance=MaintenanceConfig(background=True))
+    on = _build(keys, **cfg)
+    off = _build(keys, **cfg)
+    off.telemetry.spans.stage = lambda *a: None
+    got = _calls(on, keys, tmp_path / "on.json")
+    assert got == _calls(off, keys, tmp_path / "off.json")
+    stages = SPLICE_STAGES + OVERLAY_STAGES
+    assert not set(got[1]) & set(stages)
+    assert {s.name for s in on.telemetry.spans.spans()} >= set(stages)
+    assert all(on.telemetry.spans.count(n) == 0 for n in stages)
     for ix in (on, off):
         ix.close()
 
